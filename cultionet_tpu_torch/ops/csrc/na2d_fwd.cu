@@ -1,0 +1,189 @@
+// 2-D neighborhood attention (NATTEN semantics), forward, for Hopper (sm_90a).
+//
+// Replaces the TPU kernel cultionet_tpu/ops/natten_pallas.py::_na2d_fwd_kernel
+// (body _na2d_fwd_impl). It computes the same math, not the TPU layout: no
+// lane packing, no batch->lane fold, no row bands, no DMA halos. For every
+// query pixel and head: a softmax in fp32 of (q * D^-0.5) . k over the
+// clamped, dilated kernel_size x kernel_size window, then the weighted sum of
+// v, written back in the input type.
+//
+// Bound on the card: bytes. Each query reads D values of q and writes D of
+// out; k and v are read k*k times per query, but neighbouring queries share
+// them, so they come from L1/L2 and device memory sees each about once. The
+// arithmetic is 4*k*k*D operations per query-head (k=3: 36*D), far below the
+// card's fp32 rate per byte moved. This first version does not reach that
+// bound: each warp's k*k dependent shuffle reductions over one short row
+// leave it latency-bound (about 7% of the byte bound at the model's 140x140
+// shape on an H100 SXM, PERF.md).
+//
+// Design (first, simple version): one warp per (b, h, w, head) query.
+//  - The lanes stride over D. q is upcast to fp32 and scaled by D^-0.5 in
+//    fp32 (as the Pallas kernel does), and kept in shared memory.
+//  - For each of the k*k neighbours the lanes form partial dot products and
+//    a butterfly of warp shuffles sums them in fp32; lane 0 stores the logit
+//    in the warp's shared-memory row.
+//  - Max-subtracted softmax over the k*k logits (every lane reads them all
+//    from shared memory); exact 1.0f / denom; the weights go to a second
+//    shared-memory row, so any kernel_size fits.
+//  - Each lane accumulates its D/32 output channels in fp32 over the window.
+// Window indices follow _axis_neighbor_indices (ops/natten.py): exact for any
+// length, dilation and ragged coset. Inputs may be strided views (the thirds
+// of a fused qkv projection) as long as the head_dim axis is unit-stride.
+
+#include <cuda_bf16.h>
+#include <cuda_runtime.h>
+#include <math.h>
+#include <stdint.h>
+
+namespace {
+
+constexpr int kWarp = 32;
+constexpr int kMaxWarpsPerBlock = 8;
+constexpr int kStaticSmemLimit = 48 * 1024;
+
+__device__ __forceinline__ float to_float(float x) { return x; }
+__device__ __forceinline__ float to_float(__nv_bfloat16 x) {
+  return __bfloat162float(x);
+}
+
+template <typename T>
+__device__ __forceinline__ T from_float(float x);
+template <>
+__device__ __forceinline__ float from_float<float>(float x) {
+  return x;
+}
+template <>
+__device__ __forceinline__ __nv_bfloat16 from_float<__nv_bfloat16>(float x) {
+  return __float2bfloat16(x);
+}
+
+// First index of the clamped window along one axis; neighbour j sits at
+// start + dilation * j (ops/natten.py::_axis_neighbor_indices).
+__device__ __forceinline__ int window_start(int i, int length, int ks,
+                                            int dil) {
+  const int coset = i % dil;
+  const int pos = i / dil;
+  const int coset_len = (length - coset + dil - 1) / dil;
+  const int start = min(max(pos - ks / 2, 0), coset_len - ks);
+  return coset + dil * start;
+}
+
+struct Strides {
+  long long b, h, w, n;
+};
+
+template <typename T>
+__global__ void na2d_fwd_kernel(const T* __restrict__ q,
+                                const T* __restrict__ k,
+                                const T* __restrict__ v, T* __restrict__ out,
+                                Strides sq, Strides sk, Strides sv, int H,
+                                int W, int N, int D, int ks, int dil,
+                                float scale, long long total) {
+  extern __shared__ float smem[];
+  const int warps = blockDim.x / kWarp;
+  const int warp = threadIdx.x / kWarp;
+  const int lane = threadIdx.x % kWarp;
+  const int kk = ks * ks;
+  float* qs = smem + warp * (D + 2 * kk);
+  float* logits = qs + D;
+  float* wts = logits + kk;
+
+  const long long query = (long long)blockIdx.x * warps + warp;
+  if (query >= total) return;  // the whole warp leaves together
+  long long t = query;
+  const int n = (int)(t % N);
+  t /= N;
+  const int w = (int)(t % W);
+  t /= W;
+  const int h = (int)(t % H);
+  const long long b = t / H;
+
+  const T* qp = q + b * sq.b + h * sq.h + w * sq.w + n * sq.n;
+  for (int c = lane; c < D; c += kWarp) qs[c] = to_float(qp[c]) * scale;
+  __syncwarp();
+
+  const int h0 = window_start(h, H, ks, dil);
+  const int w0 = window_start(w, W, ks, dil);
+  const T* kb = k + b * sk.b + n * sk.n;
+  const T* vb = v + b * sv.b + n * sv.n;
+
+  for (int jh = 0; jh < ks; ++jh) {
+    const T* krow = kb + (long long)(h0 + dil * jh) * sk.h;
+    for (int jw = 0; jw < ks; ++jw) {
+      const T* kp = krow + (long long)(w0 + dil * jw) * sk.w;
+      float part = 0.f;
+      for (int c = lane; c < D; c += kWarp) part += qs[c] * to_float(kp[c]);
+#pragma unroll
+      for (int off = kWarp / 2; off > 0; off >>= 1)
+        part += __shfl_xor_sync(0xffffffffu, part, off);
+      if (lane == 0) logits[jh * ks + jw] = part;
+    }
+  }
+  __syncwarp();
+
+  float m = -INFINITY;
+  for (int j = 0; j < kk; ++j) m = fmaxf(m, logits[j]);
+  float denom = 0.f;
+  for (int j = 0; j < kk; ++j) denom += expf(logits[j] - m);
+  const float inv = 1.0f / denom;
+  for (int j = lane; j < kk; j += kWarp) wts[j] = expf(logits[j] - m) * inv;
+  __syncwarp();
+
+  T* op = out + query * D;
+  for (int c = lane; c < D; c += kWarp) {
+    float acc = 0.f;
+    for (int jh = 0; jh < ks; ++jh) {
+      const T* vrow = vb + (long long)(h0 + dil * jh) * sv.h + c;
+      for (int jw = 0; jw < ks; ++jw)
+        acc += wts[jh * ks + jw] * to_float(vrow[(long long)(w0 + dil * jw) * sv.w]);
+    }
+    op[c] = from_float<T>(acc);
+  }
+}
+
+template <typename T>
+int launch(const void* q, const void* k, const void* v, void* out,
+           const long long* strides, int B, int H, int W, int N, int D,
+           int ks, int dil, cudaStream_t stream) {
+  const long long total = (long long)B * H * W * N;
+  const int row_bytes = (D + 2 * ks * ks) * (int)sizeof(float);
+  int warps = kMaxWarpsPerBlock;
+  while (warps > 1 && warps * row_bytes > kStaticSmemLimit) warps /= 2;
+  if (warps * row_bytes > kStaticSmemLimit) return (int)cudaErrorInvalidValue;
+  const long long blocks = (total + warps - 1) / warps;
+  const Strides sq{strides[0], strides[1], strides[2], strides[3]};
+  const Strides sk{strides[4], strides[5], strides[6], strides[7]};
+  const Strides sv{strides[8], strides[9], strides[10], strides[11]};
+  // D^-0.5 rounded once from double, as the host frameworks round it.
+  const float scale = (float)(1.0 / sqrt((double)D));
+  na2d_fwd_kernel<T><<<(unsigned)blocks, warps * kWarp, warps * row_bytes,
+                       stream>>>(
+      static_cast<const T*>(q), static_cast<const T*>(k),
+      static_cast<const T*>(v), static_cast<T*>(out), sq, sk, sv, H, W, N, D,
+      ks, dil, scale, total);
+  return (int)cudaGetLastError();
+}
+
+}  // namespace
+
+// dtype: 0 = float32, 1 = bfloat16. strides: 12 element strides, (b, h, w,
+// head) for q, then k, then v; the head_dim axis must be unit-stride and out
+// is contiguous (B, H, W, N, D). Returns a cudaError_t (0 = launched).
+extern "C" int na2d_fwd(int dtype, const void* q, const void* k,
+                        const void* v, void* out, const long long* strides,
+                        int B, int H, int W, int N, int D, int ks, int dil,
+                        void* stream) {
+  if (ks < 1 || dil < 1 || D < 1) return (int)cudaErrorInvalidValue;
+  if (B == 0 || H == 0 || W == 0 || N == 0) return 0;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (dtype == 0)
+    return launch<float>(q, k, v, out, strides, B, H, W, N, D, ks, dil, s);
+  if (dtype == 1)
+    return launch<__nv_bfloat16>(q, k, v, out, strides, B, H, W, N, D, ks,
+                                 dil, s);
+  return (int)cudaErrorInvalidValue;
+}
+
+extern "C" const char* na2d_error_string(int code) {
+  return cudaGetErrorString(static_cast<cudaError_t>(code));
+}
