@@ -26,6 +26,18 @@ class InferenceNames(StrEnum):
     RECONSTRUCTION = "reconstruction"
 
 
+class LossTypes(StrEnum):
+    BOUNDARY = "BoundaryLoss"
+    CENTERLINE_DICE = "CLDiceLoss"
+    CLASS_BALANCED_MSE = "ClassBalancedMSELoss"
+    LOG_COSH = "LogCoshLoss"
+    FOCAL_TVERSKY = "FocalTverskyLoss"
+    TANIMOTO_COMPLEMENT = "TanimotoComplementLoss"
+    TANIMOTO = "TanimotoDistLoss"
+    TANIMOTO_COMBINED = "TanimotoCombined"
+    TVERSKY = "TverskyLoss"
+
+
 class ModelTypes(StrEnum):
     TOWERUNET = "TowerUNet"
 
@@ -33,3 +45,19 @@ class ModelTypes(StrEnum):
 class ResBlockTypes(StrEnum):
     RES = "res"
     RESA = "resa"
+
+
+class LearningRateSchedulers(StrEnum):
+    COSINE_ANNEALING_LR = "CosineAnnealingLR"
+    EXPONENTIAL_LR = "ExponentialLR"
+    ONE_CYCLE_LR = "OneCycleLR"
+    STEP_LR = "StepLR"
+
+
+class ValidationNames(StrEnum):
+    TRUE_CROP = "true_crop"
+    TRUE_EDGE = "true_edge"
+    TRUE_CROP_AND_EDGE = "true_crop_and_edge"
+    TRUE_CROP_OR_EDGE = "true_crop_or_edge"
+    TRUE_CROP_TYPE = "true_crop_type"
+    MASK = "mask"

@@ -5,6 +5,7 @@ import torch
 from torch import nn
 
 from ..ops.natten import na2d
+from .dropout import Dropout, dropout_generator
 
 Tensor = torch.Tensor
 
@@ -39,18 +40,32 @@ class NeighborhoodAttention2D(nn.Module):
         self.attn_drop = attn_drop
         self.qkv = nn.Linear(channels, channels * 3)
         self.proj = nn.Linear(channels, channels)
-        self.proj_drop = nn.Dropout(proj_drop)
+        self.proj_drop = Dropout(proj_drop)
 
     def forward(self, x: Tensor) -> Tensor:
-        if self.training and self.attn_drop > 0:
-            raise NotImplementedError(
-                "attention dropout in training: training slice"
-            )
         heads = self.num_heads
         # Thirds of the fused projection, then heads (torch reshapes the
         # fused projection as (3, heads, dim): the same column order).
         q, k, v = (
             t.unflatten(-1, (heads, -1)) for t in self.qkv(x).chunk(3, -1)
         )
-        out = na2d(q, k, v, self.kernel_size, self.dilation)
+        if self.training and self.attn_drop > 0:
+            # Dropout on the attention weights, inside the kernels: the
+            # seed is drawn from the step's generator (as the JAX module
+            # draws it from the dropout rng) and stays on its device.
+            generator = dropout_generator()
+            seed = torch.randint(
+                0,
+                torch.iinfo(torch.int32).max,
+                (1,),
+                generator=generator,
+                device=generator.device,
+                dtype=torch.int32,
+            ).to(q.device)
+            out = na2d(
+                q, k, v, self.kernel_size, self.dilation,
+                attn_drop=self.attn_drop, seed=seed,
+            )
+        else:
+            out = na2d(q, k, v, self.kernel_size, self.dilation)
         return self.proj_drop(self.proj(out.flatten(-2)))

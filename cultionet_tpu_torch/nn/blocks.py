@@ -10,11 +10,13 @@ variants keep the same parameter names and the same per-channel math.
 import typing as T
 
 import torch
+import torch.nn.functional as F
 from torch import nn
 
 from ..enums import AttentionTypes
 from .activations import get_activation
 from .attention import NeighborhoodAttention2D
+from .dropout import Dropout
 from .resize import resize_bilinear_align_corners
 
 Tensor = torch.Tensor
@@ -29,18 +31,47 @@ def channels_first(x: Tensor) -> Tensor:
 
 
 class BatchNorm(nn.Module):
-    """BatchNorm2d (momentum 0.1, eps 1e-5), nested as the flax wrapper is
-    (``BatchNorm_0/BatchNorm_0``). A 5-D (B, C, T, H, W) input is normalized
-    per channel C like a 4-D one."""
+    """BatchNorm (eps 1e-5), nested as the flax wrapper is
+    (``BatchNorm_0/BatchNorm_0``; the inner ``nn.BatchNorm2d`` holds the
+    parameters and running statistics). A 5-D (B, C, T, H, W) input is
+    normalized per channel C like a 4-D one.
+
+    Eval normalizes with the running statistics. Training normalizes with
+    the batch statistics and updates the running ones as flax
+    ``nn.BatchNorm(momentum=0.9)`` does: with the *biased* batch variance
+    (torch's own update takes the unbiased one), the batch statistics in
+    fp32, and the old running value rounded to the input's type first,
+    ``ra = bf16(0.9 * bf16(ra)) + 0.1 * stat`` under bf16 compute, as the
+    JAX step's cast of the statistics to the compute type makes it.
+    """
 
     def __init__(self, channels: int):
         super().__init__()
         self.BatchNorm_0 = nn.BatchNorm2d(channels, eps=1e-5, momentum=0.1)
 
     def forward(self, x: Tensor) -> Tensor:
-        if x.dim() == 5:
-            return self.BatchNorm_0(x.flatten(2, 3)).view_as(x)
-        return self.BatchNorm_0(x)
+        x4 = x.flatten(2, 3) if x.dim() == 5 else x
+        bn = self.BatchNorm_0
+        if not self.training:
+            return bn(x4).view_as(x)
+        with torch.no_grad():
+            var, mean = torch.var_mean(
+                x4.float(), dim=(0, 2, 3), correction=0
+            )
+            # 0.9 in the input's type: the product of two values of that
+            # type is exact in fp32, so torch's fp32 arithmetic rounds it
+            # once, as JAX's multiply in that type does.
+            momentum = torch.tensor(0.9, dtype=x.dtype).item()
+            for running, stat in (
+                (bn.running_mean, mean),
+                (bn.running_var, var),
+            ):
+                old = (running.to(x.dtype) * momentum).float()
+                running.copy_(old + 0.1 * stat)
+        out = F.batch_norm(
+            x4, None, None, bn.weight, bn.bias, training=True, eps=bn.eps
+        )
+        return out.view_as(x)
 
 
 class ConvTranspose2d(nn.Module):
@@ -203,7 +234,7 @@ class ResidualAConv(nn.Module):
 
 
 class PoolResidualConv(nn.Module):
-    """Strided-conv downsample + residual block + spatial (channel) dropout.
+    """Strided-conv downsample + residual block + channel dropout.
     Only the default downsampling (ConvBlock2d, stride 2, no activation) is
     ported, without attention: the model builds its encoder without it."""
 
@@ -238,7 +269,7 @@ class PoolResidualConv(nn.Module):
             dilations=dilations,
             activation_type=activation_type,
         )
-        self.dropout = nn.Dropout2d(dropout)
+        self.dropout = Dropout(dropout, broadcast_dims=(2, 3))
 
     def forward(self, x: Tensor) -> Tensor:
         if self.pool_conv is not None:

@@ -1,11 +1,14 @@
 // 2-D neighborhood attention (NATTEN semantics), forward, for Hopper (sm_90a).
 //
-// Replaces the TPU kernel cultionet_tpu/ops/natten_pallas.py::_na2d_fwd_kernel
-// (body _na2d_fwd_impl). It computes the same math, not the TPU layout: no
-// lane packing, no batch->lane fold, no row bands, no DMA halos. For every
-// query pixel and head: a softmax in fp32 of (q * D^-0.5) . k over the
-// clamped, dilated kernel_size x kernel_size window, then the weighted sum of
-// v, written back in the input type.
+// Replaces the TPU kernels cultionet_tpu/ops/natten_pallas.py::
+// _na2d_fwd_kernel (na2d_fwd below) and _na2d_fwd_drop_kernel
+// (na2d_fwd_drop), both bodies of _na2d_fwd_impl. It computes the same math,
+// not the TPU layout: no lane packing, no batch->lane fold, no row bands, no
+// DMA halos. For every query pixel and head: a softmax in fp32 of
+// (q * D^-0.5) . k over the clamped, dilated kernel_size x kernel_size
+// window, then the weighted sum of v, written back in the input type. The
+// dropout variant multiplies each post-softmax weight by its keep bit times
+// 1 / (1 - p) (inverted dropout), as the Pallas kernel does.
 //
 // Bound on the card: bytes. Each query reads D values of q and writes D of
 // out; k and v are read k*k times per query, but neighbouring queries share
@@ -25,60 +28,33 @@
 //  - Max-subtracted softmax over the k*k logits (every lane reads them all
 //    from shared memory); exact 1.0f / denom; the weights go to a second
 //    shared-memory row, so any kernel_size fits.
+//  - Dropout (template flag, so the plain forward carries no trace of it):
+//    the keep bit is a counter-based hash of (seed, query, window slot)
+//    (na2d_common.cuh), so the mask does not depend on this grid and the
+//    backward (na2d_bwd.cu) redraws it exactly. At p = 0 every bit keeps and
+//    the factor is 1.0f, so the result equals na2d_fwd bit for bit.
 //  - Each lane accumulates its D/32 output channels in fp32 over the window.
+// The backward kernels recompute the logits with the same code and order of
+// summation (na2d_bwd.cu), so their softmax weights are the ones used here.
 // Window indices follow _axis_neighbor_indices (ops/natten.py): exact for any
 // length, dilation and ragged coset. Inputs may be strided views (the thirds
 // of a fused qkv projection) as long as the head_dim axis is unit-stride.
 
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
 #include <math.h>
-#include <stdint.h>
+
+#include "na2d_common.cuh"
 
 namespace {
 
-constexpr int kWarp = 32;
-constexpr int kMaxWarpsPerBlock = 8;
-constexpr int kStaticSmemLimit = 48 * 1024;
+using namespace na2d;
 
-__device__ __forceinline__ float to_float(float x) { return x; }
-__device__ __forceinline__ float to_float(__nv_bfloat16 x) {
-  return __bfloat162float(x);
-}
-
-template <typename T>
-__device__ __forceinline__ T from_float(float x);
-template <>
-__device__ __forceinline__ float from_float<float>(float x) {
-  return x;
-}
-template <>
-__device__ __forceinline__ __nv_bfloat16 from_float<__nv_bfloat16>(float x) {
-  return __float2bfloat16(x);
-}
-
-// First index of the clamped window along one axis; neighbour j sits at
-// start + dilation * j (ops/natten.py::_axis_neighbor_indices).
-__device__ __forceinline__ int window_start(int i, int length, int ks,
-                                            int dil) {
-  const int coset = i % dil;
-  const int pos = i / dil;
-  const int coset_len = (length - coset + dil - 1) / dil;
-  const int start = min(max(pos - ks / 2, 0), coset_len - ks);
-  return coset + dil * start;
-}
-
-struct Strides {
-  long long b, h, w, n;
-};
-
-template <typename T>
+template <typename T, bool kDrop>
 __global__ void na2d_fwd_kernel(const T* __restrict__ q,
                                 const T* __restrict__ k,
                                 const T* __restrict__ v, T* __restrict__ out,
                                 Strides sq, Strides sk, Strides sv, int H,
                                 int W, int N, int D, int ks, int dil,
-                                float scale, long long total) {
+                                float scale, long long total, Dropout drop) {
   extern __shared__ float smem[];
   const int warps = blockDim.x / kWarp;
   const int warp = threadIdx.x / kWarp;
@@ -113,9 +89,7 @@ __global__ void na2d_fwd_kernel(const T* __restrict__ q,
       const T* kp = krow + (long long)(w0 + dil * jw) * sk.w;
       float part = 0.f;
       for (int c = lane; c < D; c += kWarp) part += qs[c] * to_float(kp[c]);
-#pragma unroll
-      for (int off = kWarp / 2; off > 0; off >>= 1)
-        part += __shfl_xor_sync(0xffffffffu, part, off);
+      part = warp_sum(part);
       if (lane == 0) logits[jh * ks + jw] = part;
     }
   }
@@ -126,7 +100,14 @@ __global__ void na2d_fwd_kernel(const T* __restrict__ q,
   float denom = 0.f;
   for (int j = 0; j < kk; ++j) denom += expf(logits[j] - m);
   const float inv = 1.0f / denom;
-  for (int j = lane; j < kk; j += kWarp) wts[j] = expf(logits[j] - m) * inv;
+  uint32_t seed = 0;
+  if (kDrop) seed = (uint32_t)(*drop.seed);
+  for (int j = lane; j < kk; j += kWarp) {
+    float wj = expf(logits[j] - m) * inv;
+    if (kDrop)
+      wj = keep_bit(seed, query, j, drop.threshold) ? wj * drop.inv_keep : 0.f;
+    wts[j] = wj;
+  }
   __syncwarp();
 
   T* op = out + query * D;
@@ -141,10 +122,10 @@ __global__ void na2d_fwd_kernel(const T* __restrict__ q,
   }
 }
 
-template <typename T>
+template <typename T, bool kDrop>
 int launch(const void* q, const void* k, const void* v, void* out,
            const long long* strides, int B, int H, int W, int N, int D,
-           int ks, int dil, cudaStream_t stream) {
+           int ks, int dil, Dropout drop, cudaStream_t stream) {
   const long long total = (long long)B * H * W * N;
   const int row_bytes = (D + 2 * ks * ks) * (int)sizeof(float);
   int warps = kMaxWarpsPerBlock;
@@ -156,12 +137,28 @@ int launch(const void* q, const void* k, const void* v, void* out,
   const Strides sv{strides[8], strides[9], strides[10], strides[11]};
   // D^-0.5 rounded once from double, as the host frameworks round it.
   const float scale = (float)(1.0 / sqrt((double)D));
-  na2d_fwd_kernel<T><<<(unsigned)blocks, warps * kWarp, warps * row_bytes,
-                       stream>>>(
+  na2d_fwd_kernel<T, kDrop><<<(unsigned)blocks, warps * kWarp,
+                              warps * row_bytes, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k),
       static_cast<const T*>(v), static_cast<T*>(out), sq, sk, sv, H, W, N, D,
-      ks, dil, scale, total);
+      ks, dil, scale, total, drop);
   return (int)cudaGetLastError();
+}
+
+template <bool kDrop>
+int dispatch(int dtype, const void* q, const void* k, const void* v,
+             void* out, const long long* strides, int B, int H, int W, int N,
+             int D, int ks, int dil, Dropout drop, void* stream) {
+  if (ks < 1 || dil < 1 || D < 1) return (int)cudaErrorInvalidValue;
+  if (B == 0 || H == 0 || W == 0 || N == 0) return 0;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (dtype == 0)
+    return launch<float, kDrop>(q, k, v, out, strides, B, H, W, N, D, ks,
+                                dil, drop, s);
+  if (dtype == 1)
+    return launch<__nv_bfloat16, kDrop>(q, k, v, out, strides, B, H, W, N, D,
+                                        ks, dil, drop, s);
+  return (int)cudaErrorInvalidValue;
 }
 
 }  // namespace
@@ -173,15 +170,22 @@ extern "C" int na2d_fwd(int dtype, const void* q, const void* k,
                         const void* v, void* out, const long long* strides,
                         int B, int H, int W, int N, int D, int ks, int dil,
                         void* stream) {
-  if (ks < 1 || dil < 1 || D < 1) return (int)cudaErrorInvalidValue;
-  if (B == 0 || H == 0 || W == 0 || N == 0) return 0;
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (dtype == 0)
-    return launch<float>(q, k, v, out, strides, B, H, W, N, D, ks, dil, s);
-  if (dtype == 1)
-    return launch<__nv_bfloat16>(q, k, v, out, strides, B, H, W, N, D, ks,
-                                 dil, s);
-  return (int)cudaErrorInvalidValue;
+  return dispatch<false>(dtype, q, k, v, out, strides, B, H, W, N, D, ks, dil,
+                         Dropout{nullptr, 0u, 1.0f}, stream);
+}
+
+// As na2d_fwd, with inverted dropout on the attention weights: `seed` is a
+// device pointer to one int32, `threshold` = ceil(p * 2^24) and `inv_keep`
+// = 1 / (1 - p).
+extern "C" int na2d_fwd_drop(int dtype, const void* q, const void* k,
+                             const void* v, void* out,
+                             const long long* strides, int B, int H, int W,
+                             int N, int D, int ks, int dil, const int* seed,
+                             unsigned int threshold, float inv_keep,
+                             void* stream) {
+  if (seed == nullptr) return (int)cudaErrorInvalidValue;
+  return dispatch<true>(dtype, q, k, v, out, strides, B, H, W, N, D, ks, dil,
+                        Dropout{seed, threshold, inv_keep}, stream);
 }
 
 extern "C" const char* na2d_error_string(int code) {

@@ -10,14 +10,18 @@ start), so each query always attends to exactly ``k*k`` keys; with dilation
   key/value tensors is built from static slices and concatenation; it is the
   CPU path and the oracle of the CUDA kernel in ``natten_cuda.py``.
 - ``neighborhood_attention_2d_ref``: a gather-based oracle for tests.
+- ``dropout_keep_mask``: the attention-dropout mask of the CUDA kernels,
+  bit for bit, as a tensor the plain version applies through its
+  ``weights_fn`` hook.
 - ``na2d``: the op the model calls. A CUDA tensor goes to the hand-written
-  kernel (unless ``ops.flags.set_cuda_natten(False)`` was called), a CPU
+  kernels (unless ``ops.flags.set_cuda_natten(False)`` was called), a CPU
   tensor to the plain version.
 
 All take ``q, k, v`` shaped ``(B, H, W, num_heads, head_dim)`` and return the
 same shape.
 """
 
+import math
 import typing as T
 
 import numpy as np
@@ -50,6 +54,66 @@ def check_spatial(height: int, width: int, kernel_size: int, dilation: int):
             f"Spatial dims ({height}x{width}) must be >= "
             f"kernel_size*dilation ({kernel_size * dilation})."
         )
+
+
+def check_dropout_rate(attn_drop: float) -> None:
+    if not 0.0 <= attn_drop < 1.0:
+        raise ValueError(
+            f"attention dropout rate must be in [0, 1), got {attn_drop}"
+        )
+
+
+_MASK32 = 0xFFFFFFFF
+
+
+def _mul32(x: Tensor, constant: int) -> Tensor:
+    """(x * constant) mod 2^32 for int64 ``x`` in [0, 2^32), with every
+    intermediate below 2^63 (split into 16-bit halves)."""
+    high = ((x >> 16) * constant) & 0xFFFF
+    return ((x & 0xFFFF) * constant + (high << 16)) & _MASK32
+
+
+def _mix32(x: Tensor) -> Tensor:
+    """na2d_common.cuh::mix32 on int64 tensors holding uint32 values."""
+    x = x ^ (x >> 16)
+    x = _mul32(x, 0x7FEB352D)
+    x = x ^ (x >> 15)
+    x = _mul32(x, 0x846CA68B)
+    return x ^ (x >> 16)
+
+
+def dropout_keep_mask(
+    seed: T.Union[int, Tensor], shape: T.Sequence[int], attn_drop: float
+) -> Tensor:
+    """Inverted-dropout mask of the attention weights, shaped
+    ``(B, H, W, heads, k*k)`` as ``shape`` says: ``1 / (1 - attn_drop)``
+    where the weight is kept, else 0, in fp32.
+
+    It computes the CUDA kernels' keep bits (``csrc/na2d_common.cuh``) with
+    torch integer ops: the bit of window slot ``j`` of query-head ``q`` (the
+    flat index of (b, h, w, head)) is a hash of (seed, q, j), kept when its
+    top 24 bits reach ``ceil(attn_drop * 2^24)``. So the plain version, fed
+    this mask, and the kernels drop the same weights, whatever their launch
+    geometry. ``seed`` is an int (the mask is made on the CPU) or a
+    one-element integer tensor (the mask is made on its device, without a
+    host sync).
+    """
+    check_dropout_rate(attn_drop)
+    *lead, slots = shape
+    if not isinstance(seed, Tensor):
+        seed = torch.tensor(int(seed))
+    device = seed.device
+    seed = seed.reshape(()).to(torch.int64)
+    query = torch.arange(math.prod(lead), device=device)[:, None]
+    slot = torch.arange(slots, device=device)[None, :]
+    x = _mix32((seed & _MASK32) ^ 0x9E3779B9)
+    x = _mix32(x ^ (query & _MASK32))
+    x = _mix32(x ^ (query >> 32))
+    x = _mix32(x ^ slot)
+    keep = (x >> 8) >= math.ceil(attn_drop * (1 << 24))
+    # Multiplied in fp32, as the kernels' float 1 / (1 - p).
+    scale = 1.0 / (1.0 - attn_drop)
+    return (keep.to(torch.float32) * scale).reshape(*lead, slots)
 
 
 def neighborhood_attention_2d_ref(
@@ -166,18 +230,37 @@ def neighborhood_attention_2d(
 
 
 def na2d(
-    q: Tensor, k: Tensor, v: Tensor, kernel_size: int, dilation: int = 1
+    q: Tensor,
+    k: Tensor,
+    v: Tensor,
+    kernel_size: int,
+    dilation: int = 1,
+    attn_drop: float = 0.0,
+    seed: T.Optional[Tensor] = None,
 ) -> Tensor:
-    """Neighborhood attention on whatever device ``q`` lies on.
+    """Neighborhood attention on whatever device ``q`` lies on, with
+    inverted dropout on the attention weights when ``attn_drop > 0``
+    (keep bits from ``seed``, a one-element int32 tensor on q's device).
 
-    CUDA: the hand-written kernel (``natten_cuda.na2d_cuda``), or the plain
+    CUDA: the hand-written kernels (``natten_cuda.na2d_cuda``), or the plain
     version after an explicit ``set_cuda_natten(False)``. CPU: the plain
-    version.
+    version, given ``dropout_keep_mask(seed, ...)`` through its hook.
     """
     if q.device.type == "cuda" and cuda_natten_enabled():
         from .natten_cuda import na2d_cuda
 
-        return na2d_cuda(q, k, v, kernel_size, dilation)
+        return na2d_cuda(q, k, v, kernel_size, dilation, attn_drop, seed)
     if q.device.type not in ("cpu", "cuda"):
         raise ValueError(f"na2d: unsupported device {q.device}")
-    return neighborhood_attention_2d(q, k, v, kernel_size, dilation)
+    weights_fn = None
+    if attn_drop > 0:
+        if seed is None:
+            raise ValueError("na2d: attention dropout needs a seed")
+
+        def weights_fn(weights: Tensor) -> Tensor:
+            mask = dropout_keep_mask(seed, weights.shape, attn_drop)
+            return weights * mask.to(weights.dtype)
+
+    return neighborhood_attention_2d(
+        q, k, v, kernel_size, dilation, weights_fn=weights_fn
+    )
