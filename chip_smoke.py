@@ -26,30 +26,46 @@ on the first phase that fails:
    train shapes and the ragged and k = 5/7 shapes (fp32 <= 1e-4; bf16
    <= 5e-2 against the fp32 plain version on the same bf16 inputs); times
    beside the bound and the plain version's forward + backward.
-6. model: the full-width CLI-default CultioNet (hidden 64, T=12, 140-px
-   windows, B=8, seeded weights, BatchNorm statistics estimated by
-   training-mode passes) with the kernel and with the plain attention
-   (fp32, <= 1e-4), and against the CPU on a small input.
-7. predict (main path 1): ScenePredictor.predict_scene at bf16 on a seeded
-   int16 scene (T=12, 420x420, C=3, window 100, padding 20: 25 windows in
-   4 batches of 8).
-8. forward_profile: device time by kernel for one bf16 window batch.
-9. train (main path 2): the CLI-default train step (hidden 64, dropout
-   0.2, TanimotoComplementLoss, AdamW + OneCycle + global-norm clip 1.0,
-   "16-mixed") on one fixed seeded batch of 4 chips of 100x100, T=12, 3
-   bands: 3 warm-up steps, then 20 timed steps. Every loss finite, the
-   last below the first, exactly 3 launches of na2d_fwd_drop and of
-   na2d_bwd_drop per step and none of the no-dropout kernels.
-10. train_parity (path 3, dropout 0): one fp32 step launches na2d_fwd and
-    na2d_bwd 3 times each; its loss and gradients with the kernels
-    against the plain attention, and on the card against the CPU.
-11. eval: make_eval_step at bf16 on the trained state: finite metrics,
-    F-scores in [0, 1], MCC in [-1, 1].
-12. train_profile: device time by kernel for one bf16 train step, and
-    host time by operator for another (the profiler's own overhead
-    included).
+6. kernel_check temporal_fwd / temporal_bwd: the temporal-attention
+   kernels against the plain version (backward: against its autograd) at
+   the transformer's calls on the two main paths (a layer, T = 12 x 12,
+   and the pooling, 1 x 12 with the query broadcast over the pixels, at
+   8 x 140^2 and 4 x 100^2 pixels), a ragged N, head_dim 2 at T = 13, 3
+   heads of 32, T = 24, and 600 query steps over 4 keys (the backward's
+   statistics in dynamic shared memory beyond 48 KB; fp32 only); same
+   limits as the NA kernels; two backward launches give equal bits; times
+   beside the bound, the plain version's and torch's
+   scaled_dot_product_attention's (the yardstick).
+7. model / model_transformer: the full-width CLI-default CultioNet
+   (hidden 64, T=12, 140-px windows, B=8, seeded weights, BatchNorm
+   statistics estimated by training-mode passes), with the conv and with
+   the transformer temporal front end, with the kernels and with the
+   kernel under test switched to its plain version (fp32, <= 1e-4), and
+   against the CPU on a small input.
+8. predict / predict_transformer (main paths): ScenePredictor.predict_scene
+   at bf16 on a seeded int16 scene (T=12, 420x420, C=3, window 100,
+   padding 20: 25 windows in 4 batches of 8): 12 launches of na2d_fwd
+   (and of temporal_fwd for the transformer), no others.
+9. forward_profile(_transformer): device time by kernel for one bf16
+   window batch.
+10. train / train_transformer (main paths): the CLI-default train step
+    (hidden 64, dropout 0.2, TanimotoComplementLoss, AdamW + OneCycle +
+    global-norm clip 1.0, "16-mixed") on one fixed seeded batch of 4
+    chips of 100x100, T=12, 3 bands: 3 warm-up steps, then 20 timed steps.
+    Every loss finite, the last below the first, exactly 3 launches of
+    na2d_fwd_drop and of na2d_bwd_drop per step (and 3 of temporal_fwd
+    and temporal_bwd for the transformer) and no others.
+11. train_parity(_transformer) (dropout 0): one fp32 step launches
+    na2d_fwd and na2d_bwd 3 times each (and the temporal kernels 3 times
+    each for the transformer); its loss and gradients with the kernels
+    against the plain version, and on the card against the CPU.
+12. eval: make_eval_step at bf16 on the trained conv state: finite
+    metrics, F-scores in [0, 1], MCC in [-1, 1].
+13. train_profile(_transformer): device time by kernel for one bf16 train
+    step, and host time by operator for another (the profiler's own
+    overhead included).
 
-Kernel launch counts are zeroed just before each path (7, 9, 10) and read
+Kernel launch counts are zeroed just before each path (8, 10, 11) and read
 just after. Then the kernels line, and last ``{"ok": true, "device":
 {...}}``. TF32 is off for matmuls and convolutions throughout, so fp32
 comparisons hold fp32 arithmetic.
@@ -149,19 +165,26 @@ def na_bwd_bound_ms(shape, itemsize: int):
     return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations")
 
 
-def zero_launches() -> None:
-    from cultionet_tpu_torch.ops import natten_cuda
+def _launch_counters() -> list:
+    from cultionet_tpu_torch.ops import natten_cuda, temporal_cuda
 
+    return [natten_cuda.LAUNCHES, temporal_cuda.LAUNCHES]
+
+
+def zero_launches() -> None:
     torch.cuda.synchronize()
-    for name in natten_cuda.LAUNCHES:
-        natten_cuda.LAUNCHES[name] = 0
+    for counter in _launch_counters():
+        for name in counter:
+            counter[name] = 0
 
 
 def read_launches() -> dict:
-    from cultionet_tpu_torch.ops import natten_cuda
-
     torch.cuda.synchronize()
-    return dict(natten_cuda.LAUNCHES)
+    return {
+        name: count
+        for counter in _launch_counters()
+        for name, count in counter.items()
+    }
 
 
 def summarize(records, dtype) -> dict:
@@ -200,19 +223,19 @@ def phase_device() -> str:
 
 
 def phase_build() -> None:
-    from cultionet_tpu_torch.ops import natten_cuda
+    from cultionet_tpu_torch.ops import build, natten_cuda, temporal_cuda  # noqa: F401
 
-    names = list(natten_cuda.SOURCES)
+    names = list(build.LIBRARIES)
     start = time.perf_counter()
     with ThreadPoolExecutor(len(names)) as pool:
         futures = {
-            name: pool.submit(natten_cuda.compile_library, name, verbose=True)
+            name: pool.submit(build.compile_library, name)
             for name in names
         }
         reports = {name: f.result() for name, f in futures.items()}
     seconds = time.perf_counter() - start
     for name in names:
-        natten_cuda.load_library(name)
+        build.load_library(name)
     for name, (path, log) in reports.items():
         emit(
             {
@@ -275,7 +298,19 @@ def phase_kernels() -> dict:
     return summarize(records, "bfloat16")  # the predict path's dtype
 
 
-def build_model():
+def cli_model(temporal_encoder: str = "conv", dropout: float = 0.2):
+    """The CLI-default model at full width (weights not yet drawn), with
+    the conv or the transformer temporal front end."""
+    from cultionet_tpu_torch.models import CultioNet
+
+    return CultioNet(
+        in_time=12, in_channels=3, hidden_channels=64, dilations=[1, 2],
+        dropout=dropout, activation_type="SiLU", attention_weights="natten",
+        temporal_encoder=temporal_encoder,
+    )
+
+
+def build_model(temporal_encoder: str = "conv"):
     """The CLI-default model with seeded weights, on the card, in eval
     mode, its BatchNorm running statistics estimated by 20 training-mode
     passes over seeded random windows, as a trained model's are. Left at
@@ -283,14 +318,10 @@ def build_model():
     about 30 times more (fp32 against fp64 outputs: 6.2e-5 against 2.0e-6
     on a 2 x 44 x 44 input, on the CPU), which the model phase's fp32
     comparisons would read as kernel error."""
-    from cultionet_tpu_torch.models import CultioNet
     from cultionet_tpu_torch.nn.dropout import dropout_rng
     from cultionet_tpu_torch.nn.init import init_parameters_
 
-    model = CultioNet(
-        in_time=12, in_channels=3, hidden_channels=64, dilations=[1, 2],
-        dropout=0.2, activation_type="SiLU", attention_weights="natten",
-    )
+    model = cli_model(temporal_encoder)
     init_parameters_(model, torch.Generator().manual_seed(0))
     model.to("cuda").train()
     gen = torch.Generator(device="cuda").manual_seed(7)
@@ -309,37 +340,57 @@ def check_outputs(outputs, shape, label):
         require(0.0 <= lo and hi <= 1.0, f"{label} {name} in [{lo}, {hi}]")
 
 
-def phase_model(model) -> None:
-    from cultionet_tpu_torch.ops import natten_cuda
-    from cultionet_tpu_torch.ops.flags import set_cuda_natten
+def plain_switch(temporal_encoder: str):
+    """The switch that sends the path's kernel-under-test to its plain
+    version: the NA kernels for the conv model, the temporal kernels for
+    the transformer model (its NA kernels stay on)."""
+    from cultionet_tpu_torch.ops import flags
 
+    if temporal_encoder == "transformer":
+        return flags.set_cuda_temporal
+    return flags.set_cuda_natten
+
+
+def forward_launches(temporal_encoder: str) -> dict:
+    """Kernel launches of one eval forward."""
+    want = {name: 0 for name in read_launches()}
+    want["na2d_fwd"] = 3
+    if temporal_encoder == "transformer":
+        want["temporal_fwd"] = 3
+    return want
+
+
+def phase_model(model, temporal_encoder: str = "conv") -> None:
+    phase = "model" if temporal_encoder == "conv" else "model_transformer"
+    switch = plain_switch(temporal_encoder)
     gpu_model = model.to("cuda")
     gen = torch.Generator(device="cuda").manual_seed(1)
     x = torch.rand(8, 12, 140, 140, 3, device="cuda", generator=gen)
     with torch.inference_mode():
-        before = natten_cuda.LAUNCHES["na2d_fwd"]
+        zero_launches()
         kernel_out = gpu_model(x)
-        launches = natten_cuda.LAUNCHES["na2d_fwd"] - before
-        set_cuda_natten(False)
+        launches = read_launches()
+        switch(False)
         try:
             plain_out = gpu_model(x)
         finally:
-            set_cuda_natten(True)
+            switch(True)
         forward_ms = median_ms(lambda: gpu_model(x), iters=5, warmup=1)
-    check_outputs(kernel_out, (8, 140, 140, 1), "model")
-    check_outputs(plain_out, (8, 140, 140, 1), "model (plain NA)")
-    require(launches == 3, f"model forward launched na2d_fwd {launches}x")
+    check_outputs(kernel_out, (8, 140, 140, 1), phase)
+    check_outputs(plain_out, (8, 140, 140, 1), f"{phase} (plain)")
+    want = forward_launches(temporal_encoder)
+    require(launches == want, f"{phase} forward launched {launches}")
     err = max(
         (kernel_out[n] - plain_out[n]).abs().max().item()
         for n in ("distance", "edge", "crop")
     )
-    require(err <= 1e-4, f"model: kernel vs plain NA max-abs {err}")
+    require(err <= 1e-4, f"{phase}: kernel vs plain max-abs {err}")
     emit(
         {
-            "phase": "model",
+            "phase": phase,
             "input": [8, 12, 140, 140, 3],
             "dtype": "float32",
-            "na2d_launches": launches,
+            "launches": launches,
             "kernel_vs_plain_max_abs": err,
             "forward_ms": forward_ms,
         }
@@ -356,13 +407,16 @@ def phase_model(model) -> None:
         (gpu_small[n].cpu() - cpu_small[n]).abs().max().item()
         for n in ("distance", "edge", "crop")
     )
-    require(err <= 1e-4, f"model: card vs CPU max-abs {err}")
-    emit({"phase": "model_vs_cpu", "input": [1, 12, 44, 44, 3], "max_abs": err})
+    require(err <= 1e-4, f"{phase}: card vs CPU max-abs {err}")
+    emit(
+        {"phase": f"{phase}_vs_cpu", "input": [1, 12, 44, 44, 3], "max_abs": err}
+    )
 
 
-def phase_predict(model) -> dict:
+def phase_predict(model, temporal_encoder: str = "conv") -> dict:
     from cultionet_tpu_torch.predict import ScenePredictor
 
+    phase = "predict" if temporal_encoder == "conv" else "predict_transformer"
     scene = (
         np.random.default_rng(0).random((12, 420, 420, 3)) * 10000.0
     ).astype("int16")
@@ -380,17 +434,15 @@ def phase_predict(model) -> dict:
     require(bool(np.isfinite(raster).all()), "raster not finite")
     lo, hi = float(raster.min()), float(raster.max())
     require(0.0 <= lo and hi <= 1.0, f"raster in [{lo}, {hi}]")
-    windows = 25
-    require(
-        launches["na2d_fwd"] == 3 * 4,
-        f"predict launched na2d_fwd {launches['na2d_fwd']}x, expected 12",
-    )
+    windows, batches = 25, 4
+    want = {k: batches * n for k, n in forward_launches(temporal_encoder).items()}
+    require(launches == want, f"{phase} launched {launches}, want {want}")
     emit(
         {
-            "phase": "predict",
+            "phase": phase,
             "scene": [12, 420, 420, 3],
             "windows": windows,
-            "batches": 4,
+            "batches": batches,
             "precision": "bf16",
             "seconds": seconds,
             "windows_per_s": windows / seconds,
@@ -416,9 +468,12 @@ def device_time_by_kernel(prof, count: int):
     ]
 
 
-def phase_profile(model) -> None:
+def phase_profile(model, temporal_encoder: str = "conv") -> None:
     from torch.profiler import ProfilerActivity, profile
 
+    phase = "forward_profile"
+    if temporal_encoder != "conv":
+        phase = "forward_profile_transformer"
     run = model.to("cuda", torch.bfloat16)
     x = torch.rand(8, 12, 140, 140, 3, device="cuda").to(torch.bfloat16)
     with torch.inference_mode():
@@ -428,14 +483,20 @@ def phase_profile(model) -> None:
             run(x)
             torch.cuda.synchronize()
     events, total_us, top = device_time_by_kernel(prof, 8)
-    na_us = sum(e.device_time_total for e in events if "na2d_fwd" in e.key)
+    kernels_ms = {
+        name: sum(e.device_time_total for e in events if name in e.key) / 1e3
+        for name in ("na2d_fwd", "temporal_fwd")
+    }
     emit(
         {
-            "phase": "forward_profile",
+            "phase": phase,
             "input": [8, 12, 140, 140, 3],
             "dtype": "bfloat16",
             "device_ms": total_us / 1e3,
-            "na2d_fwd_share": na_us / total_us if total_us else None,
+            "kernels_ms": kernels_ms,
+            "na2d_fwd_share": kernels_ms["na2d_fwd"] * 1e3 / total_us
+            if total_us
+            else None,
             "top": top,
         }
     )
@@ -625,22 +686,236 @@ def phase_bwd() -> T.Dict[str, dict]:
     return {name: summarize(r, "bfloat16") for name, r in records.items()}
 
 
-def train_setup(dropout: float):
+TEMPORAL_ROWS = [  # (label, N, Tq, S, C, heads): #5/#6 calls on the main paths
+    ("predict_layer", 8 * 140 * 140, 12, 12, 64, 4),
+    ("predict_pool", 8 * 140 * 140, 1, 12, 64, 4),
+    ("train_layer", 4 * 100 * 100, 12, 12, 64, 4),
+    ("train_pool", 4 * 100 * 100, 1, 12, 64, 4),
+]
+TEMPORAL_EXTRA = [  # ragged N, the golden model's head_dim 2 at T = 13, 3 heads, T = 24
+    ("ragged", 37 * 41, 12, 12, 64, 4),
+    ("hd2_t13", 2 * 70 * 70, 13, 13, 8, 4),
+    ("heads3", 3000, 12, 12, 96, 3),
+    ("t24", 3000, 24, 24, 64, 4),
+    ("t24_pool", 3000, 1, 24, 64, 4),
+    # The backward's statistics of a pixel (600 x 8 x 12 bytes) take dynamic
+    # shared memory beyond 48 KB, and fewer pixels fit a block than would
+    # fill its threads. Its gradients sum 600 steps to magnitudes near 30,
+    # where bf16's rounding of the output alone passes the bf16 limit: the
+    # backward checks it in fp32 only.
+    ("long_query", 40, 600, 4, 16, 8),
+]
+
+
+def temporal_inputs(row, dtype, generator):
+    """q, k, v as the TemporalTransformer makes them: thirds of one fused
+    qkv projection for a layer (Tq = S); for the pooling (Tq = 1) one query
+    vector broadcast over the pixels (stride 0) and separate keys and
+    values; otherwise separate q, k, v."""
+    _, n, tq, s, c, _ = row
+    if tq == s:
+        qkv = torch.randn(n, s, 3 * c, device="cuda", generator=generator)
+        return [t for t in qkv.to(dtype).chunk(3, -1)]
+    query = torch.randn(
+        1 if tq == 1 else n, tq, c, device="cuda", generator=generator
+    )
+    k, v = (
+        torch.randn(n, s, c, device="cuda", generator=generator).to(dtype)
+        for _ in range(2)
+    )
+    return [query.to(dtype).expand(n, tq, c), k, v]
+
+
+def temporal_bound_ms(row, q: torch.Tensor, backward: bool):
+    """Bytes: q, k, v read and out written (backward: q, k, v, g read, dq,
+    dk, dv written). q counts as stored: one Tq x C block where it is
+    broadcast along N (stride 0, the pooling query), and then dq is the
+    Tq x C gradient of that block. Operations per (pixel, head, query
+    step): 4 S head_dim (logits, weighted sum), 10 S head_dim in the
+    backward."""
+    _, n, tq, s, c, _ = row
+    q_elems = (1 if q.stride(0) == 0 else n) * tq * c
+    out_elems, kv_elems = n * tq * c, n * s * c
+    if backward:
+        elems = 2 * q_elems + out_elems + 4 * kv_elems
+        ops = 10 * n * tq * s * c
+    else:
+        elems = q_elems + out_elems + 2 * kv_elems
+        ops = 4 * n * tq * s * c
+    bytes_moved = elems * q.element_size()
+    t_bytes = bytes_moved / HBM_BYTES_PER_S * 1e3
+    t_ops = ops / FP32_OPS_PER_S * 1e3
+    return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations")
+
+
+def sdpa_ms(q, k, v, heads: int, g=None):
+    """Median time of torch's scaled_dot_product_attention on the same
+    inputs as (N, heads, steps, head_dim) views (forward, or forward and
+    backward when a cotangent ``g`` is given); the yardstick, used nowhere
+    in the port. Where it refuses the whole batch (its fused kernels may
+    cap the batch below N), it runs in chunks of 65,535 pixels; returns
+    (ms, chunked)."""
+    import torch.nn.functional as F
+
+    def heads_view(t):
+        return t.unflatten(-1, (heads, -1)).transpose(1, 2)
+
+    def run(chunk):
+        for start in range(0, q.shape[0], chunk):
+            part = [t[start:start + chunk] for t in (q, k, v)]
+            if g is None:
+                F.scaled_dot_product_attention(*map(heads_view, part))
+                continue
+            leaves = [t.detach().requires_grad_() for t in part]
+            out = F.scaled_dot_product_attention(*map(heads_view, leaves))
+            torch.autograd.grad(
+                out, leaves, heads_view(g[start:start + chunk])
+            )
+
+    try:
+        run(q.shape[0])
+        torch.cuda.synchronize()
+        return median_ms(lambda: run(q.shape[0]), iters=10), False
+    except RuntimeError:
+        return median_ms(lambda: run(65535), iters=10), True
+
+
+def _temporal_record(kernel, row, dtype, err, tol, **extra):
+    label, n, tq, s, c, heads = row
+    return {
+        "phase": "kernel_check",
+        "kernel": kernel,
+        "call": label,
+        "shape": {"N": n, "Tq": tq, "S": s, "C": c, "heads": heads},
+        "dtype": str(dtype).replace("torch.", ""),
+        "max_abs_err": err,
+        "tol": tol,
+        **extra,
+    }
+
+
+def phase_temporal_fwd() -> dict:
+    from cultionet_tpu_torch.ops.temporal import temporal_attention_reference
+    from cultionet_tpu_torch.ops.temporal_cuda import launch_temporal_fwd
+
+    gen = torch.Generator(device="cuda").manual_seed(6)
+    records = []
+    for row in TEMPORAL_ROWS + TEMPORAL_EXTRA:
+        heads = row[5]
+        for dtype in (torch.float32, torch.bfloat16):
+            q, k, v = temporal_inputs(row, dtype, gen)
+            out = launch_temporal_fwd(q, k, v, heads)
+            ref = temporal_attention_reference(
+                q.float(), k.float(), v.float(), heads
+            )
+            err = (out.float() - ref).abs().max().item()
+            tol = 1e-5 if dtype == torch.float32 else 2e-2
+            record = _temporal_record("temporal_fwd", row, dtype, err, tol)
+            require(bool(torch.isfinite(out).all()), f"non-finite {record}")
+            require(err <= tol, f"kernel disagrees with plain: {record}")
+            if row in TEMPORAL_ROWS:
+                bound, by = temporal_bound_ms(row, q, False)
+                record["ms"] = median_ms(
+                    lambda: launch_temporal_fwd(q, k, v, heads)
+                )
+                record["plain_ms"] = median_ms(
+                    lambda: temporal_attention_reference(q, k, v, heads),
+                    iters=10,
+                )
+                record["library_ms"], record["library_chunked"] = sdpa_ms(
+                    q, k, v, heads
+                )
+                record["bound_ms"] = bound
+                record["bound_by"] = by
+            emit(record)
+            records.append(record)
+            del q, k, v, out, ref
+    torch.cuda.empty_cache()
+    return summarize_rows(records, "predict_")
+
+
+def phase_temporal_bwd() -> dict:
+    from cultionet_tpu_torch.ops.temporal import temporal_attention_reference
+    from cultionet_tpu_torch.ops.temporal_cuda import launch_temporal_bwd
+
+    gen = torch.Generator(device="cuda").manual_seed(7)
+    records = []
+    for row in TEMPORAL_ROWS + TEMPORAL_EXTRA:
+        heads = row[5]
+        for dtype in (torch.float32, torch.bfloat16):
+            if row[0] == "long_query" and dtype == torch.bfloat16:
+                continue
+            q, k, v = temporal_inputs(row, dtype, gen)
+            g = torch.randn(q.shape, device="cuda", generator=gen).to(dtype)
+            got = launch_temporal_bwd(q, k, v, g, heads)
+            again = launch_temporal_bwd(q, k, v, g, heads)
+            leaves = [t.detach().float().requires_grad_() for t in (q, k, v)]
+            ref = torch.autograd.grad(
+                temporal_attention_reference(*leaves, heads), leaves, g.float()
+            )
+            errs = [(a.float() - r).abs().max().item() for a, r in zip(got, ref)]
+            tol = 1e-4 if dtype == torch.float32 else 5e-2
+            record = _temporal_record(
+                "temporal_bwd", row, dtype, max(errs), tol,
+                max_abs_err_dq_dk_dv=errs,
+            )
+            require(
+                all(bool(torch.isfinite(t).all()) for t in got),
+                f"non-finite {record}",
+            )
+            require(max(errs) <= tol, f"kernel disagrees: {record}")
+            require(
+                all(torch.equal(a, b) for a, b in zip(got, again)),
+                f"two launches differ: {record}",
+            )
+            if row in TEMPORAL_ROWS:
+                bound, by = temporal_bound_ms(row, q, True)
+
+                def plain_fwd_bwd():
+                    leaves = [t.detach().requires_grad_() for t in (q, k, v)]
+                    out = temporal_attention_reference(*leaves, heads)
+                    return torch.autograd.grad(out, leaves, g)
+
+                record["ms"] = median_ms(
+                    lambda: launch_temporal_bwd(q, k, v, g, heads)
+                )
+                record["plain_ms"] = median_ms(plain_fwd_bwd, iters=10)
+                record["library_ms"], record["library_chunked"] = sdpa_ms(
+                    q, k, v, heads, g
+                )
+                record["bound_ms"] = bound
+                record["bound_by"] = by
+            emit(record)
+            records.append(record)
+            del q, k, v, g, got, again, ref, leaves
+    torch.cuda.empty_cache()
+    return summarize_rows(records, "train_")
+
+
+def summarize_rows(records, prefix: str) -> dict:
+    """As ``summarize`` over the bf16 timed records whose call starts with
+    ``prefix`` (one layer call and one pooling call), with the library
+    call's time."""
+    chosen = [r for r in records if r["call"].startswith(prefix)]
+    summary = summarize(chosen, "bfloat16")
+    summary["library_ms"] = sum(
+        r["library_ms"] for r in chosen if r["dtype"] == "bfloat16"
+    )
+    return summary
+
+
+def train_setup(dropout: float, temporal_encoder: str = "conv"):
     """The CLI-default model at full width (weights not yet drawn) and its
     CLI-default optimizer: AdamW, OneCycle peak 0.01 over 100 epochs of
     TRAIN_STEPS steps with the beta1 cycle, weight decay 1e-3, global-norm
     clip 1.0."""
-    from cultionet_tpu_torch.models import CultioNet
     from cultionet_tpu_torch.train.optim import (
         build_momentum_schedule,
         build_optimizer,
         build_schedule,
     )
 
-    model = CultioNet(
-        in_time=12, in_channels=3, hidden_channels=64, dilations=[1, 2],
-        dropout=dropout, activation_type="SiLU", attention_weights="natten",
-    )
+    model = cli_model(temporal_encoder, dropout)
     tx = build_optimizer(
         optimizer="AdamW",
         learning_rate=build_schedule("OneCycleLR", 0.01, 100, TRAIN_STEPS),
@@ -662,13 +937,27 @@ def train_batch():
     )
 
 
-def phase_train(smi: str):
+def step_launches(temporal_encoder: str, dropout: bool) -> dict:
+    """Kernel launches of one train step: the decoder's three NA calls
+    (the dropout kernels when the step has dropout) forward and backward,
+    and for the transformer its two layers' and its pooling's temporal
+    attention forward and backward."""
+    want = {name: 0 for name in read_launches()}
+    suffix = "_drop" if dropout else ""
+    want[f"na2d_fwd{suffix}"] = want[f"na2d_bwd{suffix}"] = 3
+    if temporal_encoder == "transformer":
+        want["temporal_fwd"] = want["temporal_bwd"] = 3
+    return want
+
+
+def phase_train(smi: str, temporal_encoder: str = "conv"):
     from cultionet_tpu_torch.train.step import (
         create_train_state,
         make_train_step,
     )
 
-    model, tx = train_setup(dropout=0.2)
+    phase = "train" if temporal_encoder == "conv" else "train_transformer"
+    model, tx = train_setup(dropout=0.2, temporal_encoder=temporal_encoder)
     state = create_train_state(model, tx, seed=0, device="cuda")
     step = make_train_step(
         loss_name="TanimotoComplementLoss", precision="16-mixed",
@@ -691,18 +980,15 @@ def phase_train(smi: str):
     launches = read_launches()
     losses = [float(x) for x in losses]
     timed = TRAIN_STEPS - TRAIN_WARMUP
-    require(all(np.isfinite(losses)), f"train losses {losses}")
-    require(losses[-1] < losses[0], f"train loss did not fall: {losses}")
+    require(all(np.isfinite(losses)), f"{phase} losses {losses}")
+    require(losses[-1] < losses[0], f"{phase} loss did not fall: {losses}")
     want = {
-        "na2d_fwd_drop": 3 * timed,
-        "na2d_bwd_drop": 3 * timed,
-        "na2d_fwd": 0,
-        "na2d_bwd": 0,
+        k: timed * n for k, n in step_launches(temporal_encoder, True).items()
     }
-    require(launches == want, f"train launches {launches}, want {want}")
+    require(launches == want, f"{phase} launches {launches}, want {want}")
     emit(
         {
-            "phase": "train",
+            "phase": phase,
             "card": smi,
             "batch": [4, 12, 100, 100, 3],
             "precision": "16-mixed",
@@ -720,19 +1006,27 @@ def phase_train(smi: str):
     return state, batch, launches, timed / seconds
 
 
-def grad_diffs(got: dict, want: dict) -> T.Tuple[float, float]:
+def grad_diffs(got: dict, want: dict) -> T.Tuple[float, float, list]:
     """(largest max|got - want| over tensors relative to the largest entry
     of all of ``want``; largest over tensors of max|got - want| relative to
-    that tensor's own largest entry, skipping all-zero tensors)."""
+    that tensor's own largest entry; the tensors the second skips). The
+    second skips tensors whose own largest entry is below 1e-5 of the
+    largest overall: gradients that are zero up to round-off, such as the
+    pooling keys' bias in the transformer, which the softmax's invariance
+    to a shift of all logits makes zero, have no scale of their own; the
+    first still bounds them."""
     top = max(ref.abs().max().item() for ref in want.values())
     worst_global = worst_own = 0.0
+    skipped = []
     for name, ref in want.items():
         diff = (got[name].cpu() - ref.cpu()).abs().max().item()
         worst_global = max(worst_global, diff / top)
         scale = ref.abs().max().item()
-        if scale > 0:
+        if scale > 1e-5 * top:
             worst_own = max(worst_own, diff / scale)
-    return worst_global, worst_own
+        else:
+            skipped.append(name)
+    return worst_global, worst_own, skipped
 
 
 def require_grads_close(label: str, got: dict, want: dict) -> dict:
@@ -740,12 +1034,13 @@ def require_grads_close(label: str, got: dict, want: dict) -> dict:
     tensor's own largest entry (a bias gradient sums a whole map of nearly
     cancelling terms, so its own scale can sit far below the rounding of
     its terms)."""
-    rel_global, rel_own = grad_diffs(got, want)
+    rel_global, rel_own, skipped = grad_diffs(got, want)
     require(rel_global <= 1e-4, f"{label}: grads {rel_global} of the largest")
     require(rel_own <= 1e-2, f"{label}: grads {rel_own} of their own largest")
     return {
         "grad_rel_to_largest": rel_global,
         "grad_rel_to_own_largest": rel_own,
+        "zero_to_round_off": skipped,
     }
 
 
@@ -763,18 +1058,21 @@ def loss_and_grads(model, batch, device):
     return loss.item(), grads
 
 
-def phase_train_parity() -> dict:
+def phase_train_parity(temporal_encoder: str = "conv") -> dict:
     import copy
 
     from cultionet_tpu_torch.data.synthetic import create_batch
     from cultionet_tpu_torch.nn.init import init_parameters_
-    from cultionet_tpu_torch.ops.flags import set_cuda_natten
     from cultionet_tpu_torch.train.step import (
         create_train_state,
         make_train_step,
     )
 
-    model, tx = train_setup(dropout=0.0)
+    phase = "train_parity"
+    if temporal_encoder != "conv":
+        phase = "train_parity_transformer"
+    switch = plain_switch(temporal_encoder)
+    model, tx = train_setup(dropout=0.0, temporal_encoder=temporal_encoder)
     init_parameters_(model, torch.Generator().manual_seed(1))
     batch = train_batch()
 
@@ -787,28 +1085,23 @@ def phase_train_parity() -> dict:
     zero_launches()
     state, logs = step(state, batch, gen)
     launches = read_launches()
-    want = {
-        "na2d_fwd": 3,
-        "na2d_bwd": 3,
-        "na2d_fwd_drop": 0,
-        "na2d_bwd_drop": 0,
-    }
-    require(launches == want, f"parity launches {launches}, want {want}")
-    require(np.isfinite(float(logs["loss"])), "parity step loss")
+    want = step_launches(temporal_encoder, False)
+    require(launches == want, f"{phase} launches {launches}, want {want}")
+    require(np.isfinite(float(logs["loss"])), f"{phase} step loss")
     del state
 
     kernel_loss, kernel_grads = loss_and_grads(
         copy.deepcopy(model), batch, "cuda"
     )
-    set_cuda_natten(False)
+    switch(False)
     try:
         plain_loss, plain_grads = loss_and_grads(
             copy.deepcopy(model), batch, "cuda"
         )
     finally:
-        set_cuda_natten(True)
+        switch(True)
     loss_err = abs(kernel_loss - plain_loss)
-    require(loss_err <= 1e-5, f"parity: kernel vs plain loss {loss_err}")
+    require(loss_err <= 1e-5, f"{phase}: kernel vs plain loss {loss_err}")
     plain_diffs = require_grads_close(
         "kernel vs plain", kernel_grads, plain_grads
     )
@@ -820,11 +1113,13 @@ def phase_train_parity() -> dict:
     card_loss, card_grads = loss_and_grads(copy.deepcopy(model), small, "cuda")
     cpu_loss, cpu_grads = loss_and_grads(copy.deepcopy(model), small, "cpu")
     cpu_loss_err = abs(card_loss - cpu_loss)
-    require(cpu_loss_err <= 1e-5, f"parity: card vs CPU loss {cpu_loss_err}")
+    require(
+        cpu_loss_err <= 1e-5, f"{phase}: card vs CPU loss {cpu_loss_err}"
+    )
     cpu_diffs = require_grads_close("card vs CPU", card_grads, cpu_grads)
     emit(
         {
-            "phase": "train_parity",
+            "phase": phase,
             "precision": "fp32",
             "dropout": 0.0,
             "launches": launches,
@@ -864,7 +1159,9 @@ def phase_eval(state, batch) -> None:
     emit({"phase": "eval", "precision": "16-mixed", **metrics})
 
 
-def phase_train_profile(state, batch, steps_per_s: float) -> None:
+def phase_train_profile(
+    state, batch, steps_per_s: float, temporal_encoder: str = "conv"
+) -> None:
     from torch.profiler import ProfilerActivity, profile
 
     from cultionet_tpu_torch.train.step import make_train_step
@@ -894,9 +1191,19 @@ def phase_train_profile(state, batch, steps_per_s: float) -> None:
         / 1e3
         for name in ("na2d_fwd", "na2d_bwd_query", "na2d_bwd_key")
     }
+    temporal = {
+        name: sum(
+            e.device_time_total for e in events if f"{name}_kernel" in e.key
+        )
+        / 1e3
+        for name in ("temporal_fwd", "temporal_bwd")
+    }
+    phase = "train_profile"
+    if temporal_encoder != "conv":
+        phase = "train_profile_transformer"
     emit(
         {
-            "phase": "train_profile",
+            "phase": phase,
             "batch": [4, 12, 100, 100, 3],
             "precision": "16-mixed",
             "device_ms": total_us / 1e3,
@@ -906,6 +1213,7 @@ def phase_train_profile(state, batch, steps_per_s: float) -> None:
             "na_share": sum(na.values()) * 1e3 / total_us
             if total_us
             else None,
+            "temporal_kernels_ms": temporal,
             "top": top,
             "host_self_ms": sum(e.self_cpu_time_total for e in host) / 1e3,
             "host_ops": sum(e.count for e in host),
@@ -933,7 +1241,7 @@ def kernel_entry(name, source, replaces, launches, summary) -> dict:
         "plain_ms": summary["plain_ms"],
         "bound_ms": summary["bound_ms"],
         "bound_by": summary["bound_by"],
-        "library_ms": None,
+        "library_ms": summary.get("library_ms"),
     }
 
 
@@ -949,20 +1257,38 @@ def main() -> int:
     fwd = phase_kernels()
     fwd_drop = phase_fwd_drop()
     bwd = phase_bwd()
+    temporal_fwd = phase_temporal_fwd()
+    temporal_bwd = phase_temporal_bwd()
+
     model = build_model()
     phase_model(model)
     predict_launches = phase_predict(model)
     phase_profile(model)
     del model
+    model = build_model("transformer")
+    phase_model(model, "transformer")
+    predict_t_launches = phase_predict(model, "transformer")
+    phase_profile(model, "transformer")
+    del model
     torch.cuda.empty_cache()
+
     state, batch, train_launches, steps_per_s = phase_train(smi)
     parity_launches = phase_train_parity()
     phase_eval(state, batch)
     phase_train_profile(state, batch, steps_per_s)
+    del state
+    torch.cuda.empty_cache()
+    state, batch, train_t_launches, steps_per_s = phase_train(
+        smi, "transformer"
+    )
+    phase_train_parity("transformer")
+    phase_train_profile(state, batch, steps_per_s, "transformer")
+    del state
 
     fwd_src = "cultionet_tpu_torch/ops/csrc/na2d_fwd.cu"
     bwd_src = "cultionet_tpu_torch/ops/csrc/na2d_bwd.cu"
     pallas = "cultionet_tpu/ops/natten_pallas.py"
+    temporal_pallas = "cultionet_tpu/ops/temporal_pallas.py"
     emit(
         {
             "kernels": [
@@ -981,6 +1307,18 @@ def main() -> int:
                 kernel_entry(
                     "na2d_bwd_drop", bwd_src, f"{pallas}:624",
                     train_launches["na2d_bwd_drop"], bwd["na2d_bwd_drop"],
+                ),
+                kernel_entry(
+                    "temporal_fwd",
+                    "cultionet_tpu_torch/ops/csrc/temporal_fwd.cu",
+                    f"{temporal_pallas}:131",
+                    predict_t_launches["temporal_fwd"], temporal_fwd,
+                ),
+                kernel_entry(
+                    "temporal_bwd",
+                    "cultionet_tpu_torch/ops/csrc/temporal_bwd.cu",
+                    f"{temporal_pallas}:150",
+                    train_t_launches["temporal_bwd"], temporal_bwd,
                 ),
             ]
         }

@@ -1,5 +1,5 @@
 from .cultionet import CultioNet
-from .temporal import PreTimeReduction
+from .temporal import PreTimeReduction, TemporalTransformer
 from .tower_unet import TowerUNet
 
-__all__ = ["CultioNet", "PreTimeReduction", "TowerUNet"]
+__all__ = ["CultioNet", "PreTimeReduction", "TemporalTransformer", "TowerUNet"]

@@ -1,8 +1,8 @@
 """CultioNet: the top-level model (port of cultionet_tpu/models/cultionet.py).
 
-Not yet ported (listed in ROADMAP.md): lat/lon GeoEmbeddings, the
-TemporalTransformer front end, ResidualConv (``res_block_type='res'``),
-spatial-channel attention, pool-by-max and batchnorm-first blocks.
+Not yet ported (listed in ROADMAP.md): lat/lon GeoEmbeddings, ResidualConv
+(``res_block_type='res'``), spatial-channel attention, pool-by-max and
+batchnorm-first blocks.
 """
 
 import typing as T
@@ -28,6 +28,7 @@ class CultioNet(nn.Module):
         dilations: T.Optional[T.Sequence[int]] = None,
         res_block_type: str = ResBlockTypes.RESA,
         attention_weights: T.Optional[str] = AttentionTypes.NATTEN,
+        temporal_encoder: str = "conv",
     ):
         super().__init__()
         if model_type != ModelTypes.TOWERUNET:
@@ -44,6 +45,7 @@ class CultioNet(nn.Module):
             activation_type=activation_type,
             dropout=dropout,
             attention_weights=attention_weights,
+            temporal_encoder=temporal_encoder,
         )
 
     def forward(self, x: Tensor) -> T.Dict[str, T.Optional[Tensor]]:

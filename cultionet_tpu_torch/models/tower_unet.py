@@ -1,5 +1,4 @@
-"""TowerUNet (port of cultionet_tpu/models/tower_unet.py; conv temporal
-front end only)."""
+"""TowerUNet (port of cultionet_tpu/models/tower_unet.py)."""
 
 import typing as T
 
@@ -7,7 +6,7 @@ import torch
 from torch import nn
 
 from ..enums import AttentionTypes
-from .temporal import PreTimeReduction
+from .temporal import PreTimeReduction, TemporalTransformer
 from .unet_parts import (
     TowerUNetDecoder,
     TowerUNetEncoder,
@@ -36,6 +35,7 @@ class TowerUNet(nn.Module):
         activation_type: str = "SiLU",
         dropout: float = 0.0,
         attention_weights: T.Optional[str] = AttentionTypes.NATTEN,
+        temporal_encoder: str = "conv",
     ):
         super().__init__()
         channels = [
@@ -45,9 +45,24 @@ class TowerUNet(nn.Module):
             hidden_channels * 8,
         ]
         up_channels = hidden_channels * 4
-        self.pre_unet = PreTimeReduction(
-            in_channels, channels[0], in_time, activation_type
-        )
+        if temporal_encoder == "conv":
+            self.pre_unet = PreTimeReduction(
+                in_channels, channels[0], in_time, activation_type
+            )
+        elif temporal_encoder == "transformer":
+            self.pre_unet = TemporalTransformer(
+                in_channels,
+                channels[0],
+                in_time,
+                d_model=channels[0],
+                dropout=dropout,
+                activation_type=activation_type,
+            )
+        else:
+            raise ValueError(
+                f"temporal_encoder must be 'conv' or 'transformer', got "
+                f"{temporal_encoder!r}"
+            )
         self.encoder = TowerUNetEncoder(
             channels[0], channels, dilations, activation_type, dropout
         )

@@ -1,7 +1,9 @@
-"""Runtime switch for kernel dispatch (counterpart of the Pallas
-neighborhood-attention switch in cultionet_tpu/ops/flags.py)."""
+"""Runtime switches for kernel dispatch (counterparts of the Pallas
+neighborhood-attention and temporal-attention switches in
+cultionet_tpu/ops/flags.py)."""
 
 _USE_CUDA_NATTEN = True
+_USE_CUDA_TEMPORAL = True
 
 
 def set_cuda_natten(enabled: bool) -> None:
@@ -17,3 +19,15 @@ def set_cuda_natten(enabled: bool) -> None:
 
 def cuda_natten_enabled() -> bool:
     return _USE_CUDA_NATTEN
+
+
+def set_cuda_temporal(enabled: bool) -> None:
+    """Send temporal attention on CUDA tensors to the hand-written kernels
+    (True, the default) or to their plain PyTorch version (False). As with
+    ``set_cuda_natten``, only an explicit call turns the kernels off."""
+    global _USE_CUDA_TEMPORAL
+    _USE_CUDA_TEMPORAL = bool(enabled)
+
+
+def cuda_temporal_enabled() -> bool:
+    return _USE_CUDA_TEMPORAL

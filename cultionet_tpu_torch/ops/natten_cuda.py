@@ -8,11 +8,8 @@
 ``ops/natten.py::neighborhood_attention_2d`` (with
 ``dropout_keep_mask`` for the dropout pair) and its autograd.
 
-Build: at first use, ``nvcc`` compiles each source for ``sm_90a`` into a
-shared library with a plain C interface under ``cultionet_tpu_torch/_build/``
-(named by the hash of the source and its header, so an edited source
-rebuilds), and ``ctypes`` loads it. Nothing here runs when the module is
-imported, so the package imports on a machine with no ``nvcc`` and no card.
+Build: ``ops/build.py`` compiles each source for ``sm_90a`` with ``nvcc``
+into a plain-C shared library at first use and loads it with ``ctypes``.
 
 ``LAUNCHES`` counts each kernel's launches, one per wrapper call that
 launches it (the backward's two passes are one launch of ``na2d_bwd``), so
@@ -20,34 +17,15 @@ a run can show that its path went through the kernels.
 """
 
 import ctypes
-import hashlib
 import math
-import os
-import shutil
-import subprocess
-import tempfile
-import threading
 import typing as T
-from pathlib import Path
 
 import torch
 
+from . import build
 from .natten import check_dropout_rate, check_spatial
 
 Tensor = torch.Tensor
-
-CSRC = Path(__file__).resolve().parent / "csrc"
-SOURCES = {"na2d_fwd": CSRC / "na2d_fwd.cu", "na2d_bwd": CSRC / "na2d_bwd.cu"}
-HEADER = CSRC / "na2d_common.cuh"
-BUILD_DIR = Path(__file__).resolve().parents[1] / "_build"
-NVCC_FLAGS = (
-    "-gencode=arch=compute_90a,code=sm_90a",
-    "-std=c++17",
-    "-O3",
-    "-shared",
-    "-Xcompiler",
-    "-fPIC",
-)
 
 LAUNCHES: T.Dict[str, int] = {
     "na2d_fwd": 0,
@@ -66,97 +44,38 @@ _PTR, _INT, _UINT, _FLOAT = (
 _STRIDES = ctypes.POINTER(ctypes.c_longlong)
 _DIMS = [_INT] * 7  # B, H, W, N, D, kernel_size, dilation
 _DROP = [_PTR, _UINT, _FLOAT]  # seed pointer, keep threshold, 1 / (1 - p)
-_SIGNATURES = {
-    "na2d_fwd": {
-        "na2d_fwd": [_INT, _PTR, _PTR, _PTR, _PTR, _STRIDES, *_DIMS, _PTR],
-        "na2d_fwd_drop": [
-            _INT, _PTR, _PTR, _PTR, _PTR, _STRIDES, *_DIMS, *_DROP, _PTR
-        ],
-    },
-    "na2d_bwd": {
-        "na2d_bwd": [
-            _INT, _PTR, _PTR, _PTR, _PTR, _PTR, _PTR, _PTR, _PTR, _STRIDES,
-            *_DIMS, _PTR,
-        ],
-        "na2d_bwd_drop": [
-            _INT, _PTR, _PTR, _PTR, _PTR, _PTR, _PTR, _PTR, _PTR, _STRIDES,
-            *_DIMS, *_DROP, _PTR,
-        ],
-    },
-}
-
-_libs: T.Dict[str, ctypes.CDLL] = {}
-_lock = threading.Lock()
-
-
-def _nvcc() -> str:
-    from torch.utils.cpp_extension import CUDA_HOME
-
-    candidates = []
-    if CUDA_HOME:
-        candidates.append(os.path.join(CUDA_HOME, "bin", "nvcc"))
-    found = shutil.which("nvcc")
-    if found:
-        candidates.append(found)
-    for path in candidates:
-        if os.path.isfile(path):
-            return path
-    raise RuntimeError(
-        "na2d: nvcc not found (set CUDA_HOME or put nvcc on PATH); the CUDA "
-        "kernels cannot be built"
+build.register(
+    build.Library(
+        name="na2d_fwd",
+        source="na2d_fwd.cu",
+        headers=("na2d_common.cuh",),
+        signatures={
+            "na2d_fwd": [_INT, _PTR, _PTR, _PTR, _PTR, _STRIDES, *_DIMS, _PTR],
+            "na2d_fwd_drop": [
+                _INT, _PTR, _PTR, _PTR, _PTR, _STRIDES, *_DIMS, *_DROP, _PTR
+            ],
+        },
+        error_string="na2d_error_string",
     )
-
-
-def library_path(name: str) -> Path:
-    digest = hashlib.sha256(
-        SOURCES[name].read_bytes() + HEADER.read_bytes()
-    ).hexdigest()[:16]
-    return BUILD_DIR / f"lib{name}_{digest}.so"
-
-
-def compile_library(name: str, verbose: bool = False) -> T.Tuple[Path, str]:
-    """Compile library ``name`` (a key of ``SOURCES``) if it is missing;
-    returns the library path and nvcc's messages (``verbose`` adds
-    ``-Xptxas -v``: registers, shared memory and spills per kernel). Raises
-    if nvcc fails. Distinct names may build in parallel."""
-    out = library_path(name)
-    if out.exists() and not verbose:
-        return out, ""
-    BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    flags = list(NVCC_FLAGS) + (["-Xptxas", "-v"] if verbose else [])
-    fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
-    os.close(fd)
-    try:
-        proc = subprocess.run(
-            [_nvcc(), *flags, "-o", tmp, str(SOURCES[name])],
-            capture_output=True,
-            text=True,
-        )
-        if proc.returncode != 0:
-            raise RuntimeError(
-                f"{name}: nvcc failed ({proc.returncode}):\n"
-                f"{proc.stdout}{proc.stderr}"
-            )
-        os.replace(tmp, out)
-    finally:
-        if os.path.exists(tmp):
-            os.remove(tmp)
-    return out, proc.stdout + proc.stderr
-
-
-def load_library(name: str) -> ctypes.CDLL:
-    """Build (if needed) and load library ``name`` once per process."""
-    with _lock:
-        if name not in _libs:
-            path, _ = compile_library(name)
-            lib = ctypes.CDLL(str(path))
-            for fn, argtypes in _SIGNATURES[name].items():
-                getattr(lib, fn).argtypes = argtypes
-                getattr(lib, fn).restype = ctypes.c_int
-            lib.na2d_error_string.argtypes = [ctypes.c_int]
-            lib.na2d_error_string.restype = ctypes.c_char_p
-            _libs[name] = lib
-        return _libs[name]
+)
+build.register(
+    build.Library(
+        name="na2d_bwd",
+        source="na2d_bwd.cu",
+        headers=("na2d_common.cuh",),
+        signatures={
+            "na2d_bwd": [
+                _INT, _PTR, _PTR, _PTR, _PTR, _PTR, _PTR, _PTR, _PTR, _STRIDES,
+                *_DIMS, _PTR,
+            ],
+            "na2d_bwd_drop": [
+                _INT, _PTR, _PTR, _PTR, _PTR, _PTR, _PTR, _PTR, _PTR, _STRIDES,
+                *_DIMS, *_DROP, _PTR,
+            ],
+        },
+        error_string="na2d_error_string",
+    )
+)
 
 
 def _check_inputs(q: Tensor, *others: T.Tuple[str, Tensor]) -> None:
@@ -202,16 +121,6 @@ def _variant(
     return f"{name}_drop", [seed.data_ptr(), threshold, inv_keep]
 
 
-def _call(lib: ctypes.CDLL, fn: str, device: torch.device, *args) -> None:
-    with torch.cuda.device(device):
-        stream = torch.cuda.current_stream(device).cuda_stream
-        code = getattr(lib, fn)(*args, stream)
-    if code != 0:
-        raise RuntimeError(
-            f"{fn} launch failed: {lib.na2d_error_string(code).decode()}"
-        )
-
-
 def launch_na2d_fwd(
     q: Tensor,
     k: Tensor,
@@ -229,13 +138,12 @@ def launch_na2d_fwd(
     batch, height, width, heads, head_dim = q.shape
     check_spatial(height, width, kernel_size, dilation)
     fn, drop = _variant("na2d_fwd", attn_drop, seed, q.device)
-    lib = load_library("na2d_fwd")
     out = torch.empty(q.shape, dtype=q.dtype, device=q.device)
     strides = (ctypes.c_longlong * 12)(
         *q.stride()[:4], *k.stride()[:4], *v.stride()[:4]
     )
-    _call(
-        lib, fn, q.device,
+    build.launch(
+        "na2d_fwd", fn, q.device,
         _DTYPES[q.dtype], q.data_ptr(), k.data_ptr(), v.data_ptr(),
         out.data_ptr(), strides,
         batch, height, width, heads, head_dim, kernel_size, dilation,
@@ -264,7 +172,6 @@ def launch_na2d_bwd(
     batch, height, width, heads, head_dim = q.shape
     check_spatial(height, width, kernel_size, dilation)
     fn, drop = _variant("na2d_bwd", attn_drop, seed, q.device)
-    lib = load_library("na2d_bwd")
     dq, dk, dv = (
         torch.empty(q.shape, dtype=q.dtype, device=q.device) for _ in range(3)
     )
@@ -275,8 +182,8 @@ def launch_na2d_bwd(
     strides = (ctypes.c_longlong * 16)(
         *q.stride()[:4], *k.stride()[:4], *v.stride()[:4], *g.stride()[:4]
     )
-    _call(
-        lib, fn, q.device,
+    build.launch(
+        "na2d_bwd", fn, q.device,
         _DTYPES[q.dtype], q.data_ptr(), k.data_ptr(), v.data_ptr(),
         g.data_ptr(), dq.data_ptr(), dk.data_ptr(), dv.data_ptr(),
         stats.data_ptr(), strides,

@@ -12,6 +12,7 @@ name and layout:
   BatchNorm     scale/bias, mean/var -> weight/bias, running_mean/var
   LayerNorm     scale/bias           -> weight/bias
   gammas        (1,)                 -> as they are
+  pool_query    (1, 1, 1, 1, D)      -> as it is (TemporalTransformer)
 
 Variables come as the JAX ``{"params": ..., "batch_stats": ...}`` trees:
 nested mappings of arrays (numpy, or anything ``np.asarray`` reads).

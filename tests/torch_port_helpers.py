@@ -44,3 +44,33 @@ def seeded_variables(module, *args, seed: int = 0, **kwargs) -> dict:
         }
 
     return {c: visit(tree, c) for c, tree in shapes.items()}
+
+
+def jax_transformer_model(hidden, in_time=6, size=44, dropout=0.2, seed=None):
+    """The JAX CultioNet with the transformer temporal front end and its
+    seeded variables (``seeded_variables``, seed ``hidden`` by default)."""
+    import jax.numpy as jnp
+
+    from cultionet_tpu.data.batch import Batch
+    from cultionet_tpu.models import CultioNet
+
+    model = CultioNet(
+        in_time=in_time, hidden_channels=hidden, dilations=[1, 2],
+        dropout=dropout, temporal_encoder="transformer",
+    )
+    x = jnp.zeros((1, in_time, size, size, 3))
+    variables = seeded_variables(
+        model, Batch(x=x), training=False,
+        seed=hidden if seed is None else seed,
+    )
+    return model, variables
+
+
+def port_transformer_model(hidden, in_time=6, dropout=0.2):
+    """The port's CultioNet of ``jax_transformer_model``'s configuration."""
+    from cultionet_tpu_torch.models import CultioNet
+
+    return CultioNet(
+        in_time=in_time, hidden_channels=hidden, dilations=[1, 2],
+        dropout=dropout, temporal_encoder="transformer",
+    )
