@@ -36,39 +36,67 @@ on the first phase that fails:
    limits as the NA kernels; two backward launches give equal bits; times
    beside the bound, the plain version's and torch's
    scaled_dot_product_attention's (the yardstick).
-7. model / model_transformer: the full-width CLI-default CultioNet
+7. kernel_check na_block_fwd: the fused NA block kernel (#7) against
+   its plain version (``ops/na_block.py::na_block_plain``) at the
+   decoder's three NA sites (B=8, C=256: 35^2 h8, 70^2 h4, 140^2 h4 d2)
+   and at a ragged 37x35, k = 1, C = 64 with 4 heads, B = 1 and C = 40
+   (padded channels): bf16 <= 2e-2 against the plain version in fp32 on
+   the same bf16 inputs; fp32 <= 2e-2 with at most 10% of the outputs
+   above 1e-4 (the block rounds intermediates to bf16; see
+   ``phase_na_block_fwd``); times beside the bound, the plain version's
+   and the port's unfused composition's (LayerNorm, linear, NA kernel #1,
+   linear, LayerNorm: no single PyTorch call computes the block).
+8. na_block_grad: ``fused_na_block`` forward and backward in fp32 at the
+   three train sites (B=4: 25^2, 50^2, 100^2 d2): the gradients of x and
+   of the eight parameters within 1e-5 of the largest entry of autograd of
+   ``na_block_reference`` on the card; one na_block_fwd launch per
+   forward, and the backward's na2d_fwd and na2d_bwd launches counted.
+9. model / model_transformer: the full-width CLI-default CultioNet
    (hidden 64, T=12, 140-px windows, B=8, seeded weights, BatchNorm
    statistics estimated by training-mode passes), with the conv and with
    the transformer temporal front end, with the kernels and with the
    kernel under test switched to its plain version (fp32, <= 1e-4), and
    against the CPU on a small input.
-8. predict / predict_transformer (main paths): ScenePredictor.predict_scene
-   at bf16 on a seeded int16 scene (T=12, 420x420, C=3, window 100,
-   padding 20: 25 windows in 4 batches of 8): 12 launches of na2d_fwd
-   (and of temporal_fwd for the transformer), no others.
-9. forward_profile(_transformer): device time by kernel for one bf16
-   window batch.
-10. train / train_transformer (main paths): the CLI-default train step
+10. predict / predict_transformer (main paths): ScenePredictor.predict_scene
+    at bf16 on a seeded int16 scene (T=12, 420x420, C=3, window 100,
+    padding 20: 25 windows in 4 batches of 8): 12 launches of na2d_fwd
+    (and of temporal_fwd for the transformer), no others.
+11. forward_profile(_transformer): device time by kernel for one bf16
+    window batch.
+12. train / train_transformer (main paths): the CLI-default train step
     (hidden 64, dropout 0.2, TanimotoComplementLoss, AdamW + OneCycle +
     global-norm clip 1.0, "16-mixed") on one fixed seeded batch of 4
     chips of 100x100, T=12, 3 bands: 3 warm-up steps, then 20 timed steps.
     Every loss finite, the last below the first, exactly 3 launches of
     na2d_fwd_drop and of na2d_bwd_drop per step (and 3 of temporal_fwd
     and temporal_bwd for the transformer) and no others.
-11. train_parity(_transformer) (dropout 0): one fp32 step launches
+13. train_parity(_transformer) (dropout 0): one fp32 step launches
     na2d_fwd and na2d_bwd 3 times each (and the temporal kernels 3 times
     each for the transformer); its loss and gradients with the kernels
     against the plain version, and on the card against the CPU.
-12. eval: make_eval_step at bf16 on the trained conv state: finite
+14. eval: make_eval_step at bf16 on the trained conv state: finite
     metrics, F-scores in [0, 1], MCC in [-1, 1].
-13. train_profile(_transformer): device time by kernel for one bf16 train
+15. train_profile(_transformer): device time by kernel for one bf16 train
     step, and host time by operator for another (the profiler's own
     overhead included).
+16. fit (main path of the fit slice): 20 seeded int16 chip files (100x100,
+    T=12, 3 bands, labels, boundary distances) in a temporary directory,
+    their NormValues, then ``model.fit`` with the CLI's training defaults
+    for 2 epochs with checkpoints (16 train and 4 validation chips, 4
+    steps an epoch), then ``epochs=3`` on the same checkpoint. Every loss
+    finite; history 2 rows, then 3; the resumed run starts at epoch 2 from
+    step 8; the restored parameters, BatchNorm statistics and optimizer
+    state equal the saved ones bit for bit; ``last`` and ``best`` exist;
+    per train step 3 na2d_fwd_drop and 3 na2d_bwd_drop, per validation
+    batch 3 na2d_fwd, nothing else; ``load_model(best)`` through
+    ScenePredictor on the 420x420 scene: finite, 12 na2d_fwd launches.
+    Host-timed train chips/s of one epoch beside the bare step's, and the
+    resumed run's device idle share.
 
-Kernel launch counts are zeroed just before each path (8, 10, 11) and read
-just after. Then the kernels line, and last ``{"ok": true, "device":
-{...}}``. TF32 is off for matmuls and convolutions throughout, so fp32
-comparisons hold fp32 arithmetic.
+Kernel launch counts are zeroed just before each path (8, 10, 12, 13, 16)
+and read just after. Then the kernels line (seven kernels), and last
+``{"ok": true, "device": {...}}``. TF32 is off for matmuls and
+convolutions throughout, so fp32 comparisons hold fp32 arithmetic.
 """
 
 import json
@@ -166,9 +194,9 @@ def na_bwd_bound_ms(shape, itemsize: int):
 
 
 def _launch_counters() -> list:
-    from cultionet_tpu_torch.ops import natten_cuda, temporal_cuda
+    from cultionet_tpu_torch.ops import na_block_cuda, natten_cuda, temporal_cuda
 
-    return [natten_cuda.LAUNCHES, temporal_cuda.LAUNCHES]
+    return [natten_cuda.LAUNCHES, temporal_cuda.LAUNCHES, na_block_cuda.LAUNCHES]
 
 
 def zero_launches() -> None:
@@ -223,7 +251,12 @@ def phase_device() -> str:
 
 
 def phase_build() -> None:
-    from cultionet_tpu_torch.ops import build, natten_cuda, temporal_cuda  # noqa: F401
+    from cultionet_tpu_torch.ops import (  # noqa: F401
+        build,
+        na_block_cuda,
+        natten_cuda,
+        temporal_cuda,
+    )
 
     names = list(build.LIBRARIES)
     start = time.perf_counter()
@@ -892,6 +925,253 @@ def phase_temporal_bwd() -> dict:
     return summarize_rows(records, "train_")
 
 
+NA_BLOCK_SITES = [  # (B, H, W, C, heads, kernel, dilation): up_cu, up_bu, up_au
+    (8, 35, 35, 256, 8, 3, 1),
+    (8, 70, 70, 256, 4, 3, 1),
+    (8, 140, 140, 256, 4, 3, 2),
+]
+NA_BLOCK_EXTRA = [  # ragged, k = 1, C = 64 with 4 heads, B = 1, padded C
+    (2, 37, 35, 256, 8, 3, 1),
+    (2, 35, 35, 256, 8, 1, 1),
+    (2, 35, 35, 64, 4, 3, 1),
+    (1, 140, 140, 256, 4, 3, 2),
+    (2, 22, 20, 40, 5, 3, 2),
+]
+NA_BLOCK_TRAIN_SITES = [  # the same sites on 100-px training chips, B=4
+    (4, 25, 25, 256, 8, 3, 1),
+    (4, 50, 50, 256, 4, 3, 1),
+    (4, 100, 100, 256, 4, 3, 2),
+]
+BF16_OPS_PER_S = 989e12  # H100 SXM dense bf16 tensor-core peak (700 W)
+
+
+def na_block_params_on_card(channels: int, generator):
+    """The block's eight fp32 parameters with model-like scales: weights
+    N(0, 1/C) (lecun-normal), LayerNorm scales N(1, 0.1), biases
+    N(0, 0.1)."""
+    from cultionet_tpu_torch.ops.na_block import PARAM_KEYS
+
+    shapes = {
+        "w_qkv": (channels, 3 * channels),
+        "b_qkv": (3 * channels,),
+        "w_proj": (channels, channels),
+    }
+    params = {}
+    for key in PARAM_KEYS:
+        value = torch.randn(
+            shapes.get(key, (channels,)), device="cuda", generator=generator
+        )
+        if key.startswith("w_"):
+            value = value * channels**-0.5
+        elif key.endswith("scale"):
+            value = 1.0 + 0.1 * value
+        else:
+            value = 0.1 * value
+        params[key] = value
+    return params
+
+
+def na_block_bound_ms(site, itemsize: int):
+    """max(bytes / 3.35 TB/s, 2 N C 4C / 989 TFLOP/s + 4 N C k^2 / 67
+    TFLOP/s): x read once, out written once and the bf16 weights read once;
+    the two products at the bf16 tensor-core rate and the attention's
+    logits and weighted sum at the fp32 rate."""
+    b, h, w, c, _, k, _ = site
+    n = b * h * w
+    bytes_moved = 2 * n * c * itemsize + 4 * c * c * 2
+    t_bytes = bytes_moved / HBM_BYTES_PER_S * 1e3
+    t_ops = (
+        2 * n * c * 4 * c / BF16_OPS_PER_S + 4 * n * c * k * k / FP32_OPS_PER_S
+    ) * 1e3
+    return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations")
+
+
+def na_block_composition(x, params, heads: int, kernel_size: int, dilation: int):
+    """The port's unfused composition of the same block, the yardstick:
+    LayerNorm, linear, the NA kernel #1, linear, LayerNorm, in x's dtype
+    (``params`` already cast, the weights as (out, in))."""
+    import torch.nn.functional as F
+
+    from cultionet_tpu_torch.ops.natten_cuda import na2d_cuda
+
+    c = x.shape[-1]
+    h = F.layer_norm(x, (c,), params["ln1_scale"], params["ln1_bias"], 1e-6)
+    qkv = F.linear(h, params["w_qkv"], params["b_qkv"])
+    q, k, v = (t.unflatten(-1, (heads, -1)) for t in qkv.chunk(3, -1))
+    out = na2d_cuda(q, k, v, kernel_size, dilation).flatten(-2)
+    out = F.linear(out, params["w_proj"], params["b_proj"])
+    return F.layer_norm(out, (c,), params["ln2_scale"], params["ln2_bias"], 1e-6)
+
+
+def na_block_profile() -> dict:
+    """Device time of kernel #7's two launches at the largest decoder site
+    in bf16 (one call, profiled)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from cultionet_tpu_torch.ops.na_block_cuda import launch_na_block_fwd
+
+    b, h, w, c, heads, k, d = NA_BLOCK_SITES[-1]
+    gen = torch.Generator(device="cuda").manual_seed(13)
+    params = na_block_params_on_card(c, gen)
+    x = torch.randn(b, h, w, c, device="cuda", generator=gen).bfloat16()
+    launch_na_block_fwd(x, params, heads, k, d)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        launch_na_block_fwd(x, params, heads, k, d)
+        torch.cuda.synchronize()
+    _, total_us, top = device_time_by_kernel(prof, 6)
+    return {"shape": [b, h, w, c], "dtype": "bfloat16",
+            "device_ms": total_us / 1e3, "top": top}
+
+
+def phase_na_block_fwd() -> dict:
+    """Kernel #7 against ``na_block_plain`` at the decoder's NA sites and
+    the extras; every record is printed before the limits are applied.
+
+    Limits. bf16 x: <= 2e-2 against the plain version in fp32 on the same
+    bf16 inputs. fp32 x: <= 2e-2, and at most 10% of the outputs above
+    1e-4. The block's function rounds LN1's output, the attention output
+    and each q.k product to bf16; after fp32 sums in another order (tensor
+    cores against the plain matmul) a value near a rounding midpoint lands
+    on the neighbouring bf16 number, a step of 2^-8 of it, which reaches
+    every output of its pixel through the projection and LN2. So no
+    implementation that sums in another order holds 1e-4 everywhere; the
+    pixels with no such step agree to about 1e-6. The plain version on the
+    card against itself on the CPU (``plain_card_vs_cpu``, the extras)
+    shows the same spread.
+"""
+    from cultionet_tpu_torch.ops.na_block import na_block_plain
+    from cultionet_tpu_torch.ops.na_block_cuda import launch_na_block_fwd
+
+    gen = torch.Generator(device="cuda").manual_seed(11)
+    records, failures = [], []
+    for site in NA_BLOCK_SITES + NA_BLOCK_EXTRA:
+        b, h, w, c, heads, k, d = site
+        main = site in NA_BLOCK_SITES
+        params = na_block_params_on_card(c, gen)
+        x32 = torch.randn(b, h, w, c, device="cuda", generator=gen)
+        for dtype in (torch.float32, torch.bfloat16):
+            x = x32.to(dtype)
+            out = launch_na_block_fwd(x, params, heads, k, d)
+            ref = na_block_plain(x.float(), params, heads, k, d)
+            torch.cuda.synchronize()
+            diff = (out.float() - ref).abs()
+            err = diff.max().item()
+            share = (diff > 1e-4).float().mean().item()
+            tol = 2e-2
+            record = {
+                "phase": "kernel_check",
+                "kernel": "na_block_fwd",
+                "shape": [b, h, w, c],
+                "heads": heads,
+                "kernel_size": k,
+                "dilation": d,
+                "dtype": str(dtype).replace("torch.", ""),
+                "max_abs_err": err,
+                "share_above_1e-4": share,
+                "tol": tol,
+            }
+            ok = bool(torch.isfinite(out).all()) and err <= tol
+            if dtype == torch.float32:
+                record["share_limit"] = 0.1
+                ok = ok and share <= 0.1
+            if not main and dtype == torch.float32:
+                cpu = na_block_plain(
+                    x.cpu(), {key: v.cpu() for key, v in params.items()},
+                    heads, k, d,
+                )
+                spread = (cpu - ref.cpu()).abs()
+                record["plain_card_vs_cpu"] = {
+                    "max_abs": spread.max().item(),
+                    "share_above_1e-4": (spread > 1e-4).float().mean().item(),
+                }
+            if not ok:
+                failures.append(record)
+            if main:
+                bound, by = na_block_bound_ms(site, x.element_size())
+                record["ms"] = median_ms(
+                    lambda: launch_na_block_fwd(x, params, heads, k, d)
+                )
+                record["plain_ms"] = median_ms(
+                    lambda: na_block_plain(x, params, heads, k, d), iters=10
+                )
+                cast = {
+                    key: (v.t().contiguous() if key.startswith("w_") else v).to(dtype)
+                    for key, v in params.items()
+                }
+                record["library_ms"] = median_ms(
+                    lambda: na_block_composition(x, cast, heads, k, d), iters=10
+                )
+                record["library"] = "composition"
+                record["bound_ms"] = bound
+                record["bound_by"] = by
+            emit(record)
+            records.append(record)
+            del x, out, ref, diff
+        torch.cuda.empty_cache()
+    require(not failures, f"na_block_fwd disagrees with plain: {failures}")
+    emit({"phase": "na_block_fwd_profile", **na_block_profile()})
+    summary = summarize(records, "bfloat16")
+    summary["library_ms"] = sum(
+        r["library_ms"] for r in records
+        if r["dtype"] == "bfloat16" and "library_ms" in r
+    )
+    return summary
+
+
+def phase_na_block_grad() -> dict:
+    """``fused_na_block`` forward and backward at the train sites in fp32:
+    the gradients of x and of every parameter against autograd of
+    ``na_block_reference`` on the card (the same backward), within 1e-5 of
+    the largest entry; one ``na_block_fwd`` launch per forward."""
+    from cultionet_tpu_torch.ops.na_block import (
+        PARAM_KEYS,
+        fused_na_block,
+        na_block_reference,
+    )
+
+    gen = torch.Generator(device="cuda").manual_seed(12)
+    total = {}
+    rows = []
+    for site in NA_BLOCK_TRAIN_SITES:
+        b, h, w, c, heads, k, d = site
+        params = na_block_params_on_card(c, gen)
+        x = torch.randn(b, h, w, c, device="cuda", generator=gen)
+        g = torch.randn(b, h, w, c, device="cuda", generator=gen)
+
+        def grads(fn):
+            xs = x.clone().requires_grad_()
+            ps = {key: v.clone().requires_grad_() for key, v in params.items()}
+            fn(xs, ps, heads, k, d).backward(g)
+            return {"x": xs.grad, **{key: ps[key].grad for key in PARAM_KEYS}}
+
+        zero_launches()
+        got = grads(fused_na_block)
+        launches = read_launches()
+        want = grads(na_block_reference)
+        top = max(t.abs().max().item() for t in want.values())
+        rel = max((got[n] - want[n]).abs().max().item() for n in want) / top
+        require(
+            launches["na_block_fwd"] == 1,
+            f"na_block_grad {site}: launches {launches}",
+        )
+        require(rel <= 1e-5, f"na_block_grad {site}: {rel} of the largest")
+        for name, count in launches.items():
+            total[name] = total.get(name, 0) + count
+        rows.append(
+            {"shape": [b, h, w, c], "heads": heads, "dilation": d,
+             "grad_rel_to_largest": rel,
+             "launches": {n: v for n, v in launches.items() if v}}
+        )
+        del x, g, got, want
+    torch.cuda.empty_cache()
+    emit(
+        {"phase": "na_block_grad", "dtype": "float32", "sites": rows,
+         "limit": 1e-5, "launches": total}
+    )
+    return total
+
+
 def summarize_rows(records, prefix: str) -> dict:
     """As ``summarize`` over the bf16 timed records whose call starts with
     ``prefix`` (one layer call and one pooling call), with the library
@@ -1229,6 +1509,227 @@ def phase_train_profile(
     )
 
 
+FIT_CHIPS = 20  # 100 x 100, T = 12, 3 bands: 16 train and 4 validation chips
+
+
+def write_fit_chips(root) -> None:
+    """FIT_CHIPS seeded chips with labels and boundary distances, x and
+    bdist packed to int16 x 10000 as the chip creator writes them."""
+    from cultionet_tpu_torch.data.synthetic import create_batch
+
+    rng = np.random.default_rng(21)
+    for _ in range(FIT_CHIPS):
+        batch = create_batch(
+            num_channels=3, num_time=12, height=100, width=100, rng=rng
+        )
+        batch = batch.replace(
+            x=(batch.x * 10000).to(torch.int16),
+            bdist=(batch.bdist * 10000).to(torch.int16),
+        )
+        batch.to_file(root / "processed" / batch.batch_id[0])
+
+
+def fit_params(root, ckpt, norm, epochs: int):
+    """The CLI's training defaults (hidden 64, natten, dropout 0.2,
+    dilations [1, 2], "16-mixed", AdamW + OneCycle peak 0.01, weight decay
+    1e-3, clip 1.0, batch 4, val_frac 0.2), host augmentation off."""
+    from cultionet_tpu_torch.config import CultionetParams
+    from cultionet_tpu_torch.data.datasets import ChipDataset
+
+    return CultionetParams(
+        ckpt_file=ckpt / "last.ckpt",
+        dataset=ChipDataset(root, norm_values=norm),
+        val_frac=0.2,
+        batch_size=4,
+        hidden_channels=64,
+        attention_weights="natten",
+        dropout=0.2,
+        dilations=[1, 2],
+        activation_type="SiLU",
+        precision="16-mixed",
+        optimizer="AdamW",
+        lr_scheduler="OneCycleLR",
+        learning_rate=0.01,
+        weight_decay=1e-3,
+        gradient_clip_val=1.0,
+        augment_prob=0.0,
+        epochs=epochs,
+    )
+
+
+def fit_launches(train_steps: int, val_batches: int) -> dict:
+    """Per train step 3 launches of each NA dropout kernel; per validation
+    batch 3 of the NA forward; nothing else."""
+    want = {name: 0 for name in read_launches()}
+    want["na2d_fwd_drop"] = want["na2d_bwd_drop"] = 3 * train_steps
+    want["na2d_fwd"] = 3 * val_batches
+    return want
+
+
+def require_states_equal(got, want) -> None:
+    """Parameters, buffers, step and optimizer state equal bit for bit."""
+    for name, value in want.model.state_dict().items():
+        require(
+            torch.equal(got.model.state_dict()[name], value),
+            f"fit: restored {name} differs",
+        )
+    require(got.step == want.step, f"fit: step {got.step} != {want.step}")
+    g, w = got.optimizer.state_dict(), want.optimizer.state_dict()
+    require(g["count"] == w["count"], "fit: optimizer count differs")
+    for key, entry in w["torch_optimizer"]["state"].items():
+        for name, value in entry.items():
+            require(
+                torch.equal(
+                    g["torch_optimizer"]["state"][key][name].cpu(), value.cpu()
+                ),
+                f"fit: optimizer state {key}.{name} differs",
+            )
+
+
+def phase_fit(train_steps_per_s: float) -> dict:
+    """The fit loop from chip files: normalization statistics, 2 epochs
+    with checkpoints, a resume to 3 epochs, then the best checkpoint
+    through ScenePredictor."""
+    import copy
+    import tempfile
+    from pathlib import Path
+
+    from torch.profiler import ProfilerActivity, profile
+
+    from cultionet_tpu_torch.data.datasets import ChipDataset
+    from cultionet_tpu_torch.data.loader import ChipLoader
+    from cultionet_tpu_torch.model import fit, load_model
+    from cultionet_tpu_torch.predict import ScenePredictor
+    from cultionet_tpu_torch.train.checkpoint import Checkpointer
+    from cultionet_tpu_torch.utils.normalize import NormValues
+
+    with tempfile.TemporaryDirectory() as tmp:
+        root, ckpt = Path(tmp) / "chips", Path(tmp) / "ckpt"
+        start = time.perf_counter()
+        write_fit_chips(root)
+        norm = NormValues.from_dataset(
+            ChipDataset(root), {"max_crop_class": 1, "edge_class": 2}
+        )
+        setup_s = time.perf_counter() - start
+
+        zero_launches()
+        start = time.perf_counter()
+        first = fit(fit_params(root, ckpt, norm, epochs=2))
+        torch.cuda.synchronize()
+        first_s = time.perf_counter() - start
+        launches = read_launches()
+        steps_per_epoch, val_batches = 4, 1
+        require(
+            launches == fit_launches(2 * steps_per_epoch, 2 * val_batches),
+            f"fit (2 epochs) launched {launches}",
+        )
+        store = ckpt / "last_store"
+        for which in ("last", "best"):
+            require((store / which / "model.pt").exists(), f"fit: no {which}")
+        require(len(first.history) == 2, f"fit: history {first.history}")
+        require(first.state.step == 8, f"fit: step {first.state.step}")
+        template = copy.deepcopy(first.state.model)
+        with torch.no_grad():
+            for p in template.parameters():
+                p.zero_()
+        restored = Checkpointer(store).restore(
+            type(first.state)(
+                model=template,
+                optimizer=first.state.optimizer.spec.init(template.parameters()),
+            ),
+            "last",
+        )
+        require_states_equal(restored, first.state)
+        del first, restored, template
+
+        zero_launches()
+        start = time.perf_counter()
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            resumed = fit(fit_params(root, ckpt, norm, epochs=3))
+            torch.cuda.synchronize()
+        resumed_s = time.perf_counter() - start
+        resumed_launches = read_launches()
+        _, device_us, top = device_time_by_kernel(prof, 8)
+        require(
+            resumed_launches == fit_launches(steps_per_epoch, val_batches),
+            f"fit (resumed) launched {resumed_launches}",
+        )
+        require(
+            [r["epoch"] for r in resumed.history] == [2],
+            f"fit: resumed history {resumed.history}",
+        )
+        require(resumed.state.step == 12, f"fit: step {resumed.state.step}")
+        # Where an epoch's host time goes: the loader alone over the train
+        # split, and one checkpoint save.
+        train_ds, _ = ChipDataset(root, norm_values=norm).split_train_val(0.2)
+        loader = ChipLoader(
+            train_ds, batch_size=4, shuffle=True, drop_last=True,
+            device="cuda",
+        )
+        start = time.perf_counter()
+        loaded = len(list(loader))
+        torch.cuda.synchronize()
+        loader_s = time.perf_counter() - start
+        require(loaded == steps_per_epoch, f"fit: loader gave {loaded}")
+        start = time.perf_counter()
+        Checkpointer(Path(tmp) / "timing").save_last(resumed.state, 0)
+        save_s = time.perf_counter() - start
+        rows = (ckpt / "history.csv").read_text().splitlines()
+        require(len(rows) == 1 + 3, f"fit: history.csv has {len(rows)} lines")
+        history = [
+            {k: float(v) for k, v in zip(rows[0].split(","), r.split(","))}
+            for r in rows[1:]
+        ]
+        for row in history:
+            for key in ("loss", "val_loss", "val_score"):
+                require(np.isfinite(row[key]), f"fit: {key} {row}")
+        del resumed
+
+        _, model = load_model(store, "best")
+        scene = (
+            np.random.default_rng(0).random((12, 420, 420, 3)) * 10000.0
+        ).astype("int16")
+        predictor = ScenePredictor(model, batch_size=8, device="cuda")
+        zero_launches()
+        raster, _ = predictor.predict_scene(scene, window_size=100, padding=20)
+        predict_launches = read_launches()
+        want = {name: 0 for name in predict_launches}
+        want["na2d_fwd"] = 12
+        require(predict_launches == want, f"fit predict {predict_launches}")
+        require(
+            raster.shape == (420, 420, 3) and bool(np.isfinite(raster).all()),
+            "fit: predicted raster not finite",
+        )
+        del model, predictor
+
+    epoch_s = first_s - resumed_s  # one epoch; set-up cancels
+    emit(
+        {
+            "phase": "fit",
+            "chips": [FIT_CHIPS, 12, 100, 100, 3],
+            "train_chips_per_epoch": 4 * steps_per_epoch,
+            "val_chips_per_epoch": 4 * val_batches,
+            "precision": "16-mixed",
+            "setup_s": setup_s,
+            "fit_2_epochs_s": first_s,
+            "fit_resumed_1_epoch_s": resumed_s,
+            "epoch_s": epoch_s,
+            "epoch_train_chips_per_s": 4 * steps_per_epoch / epoch_s,
+            "loader_epoch_s": loader_s,
+            "checkpoint_save_s": save_s,
+            "bare_step_chips_per_s": 4 * train_steps_per_s,
+            "resumed_run_device_ms": device_us / 1e3,
+            "resumed_run_device_idle_share": 1.0 - device_us / 1e6 / resumed_s,
+            "resumed_run_top": top,
+            "history": history,
+            "launches": launches,
+            "resumed_launches": resumed_launches,
+            "predict_launches": predict_launches,
+        }
+    )
+    return launches
+
+
 def kernel_entry(name, source, replaces, launches, summary) -> dict:
     return {
         "name": name,
@@ -1259,6 +1760,8 @@ def main() -> int:
     bwd = phase_bwd()
     temporal_fwd = phase_temporal_fwd()
     temporal_bwd = phase_temporal_bwd()
+    na_block = phase_na_block_fwd()
+    na_block_launches = phase_na_block_grad()
 
     model = build_model()
     phase_model(model)
@@ -1273,6 +1776,7 @@ def main() -> int:
     torch.cuda.empty_cache()
 
     state, batch, train_launches, steps_per_s = phase_train(smi)
+    conv_steps_per_s = steps_per_s
     parity_launches = phase_train_parity()
     phase_eval(state, batch)
     phase_train_profile(state, batch, steps_per_s)
@@ -1284,6 +1788,8 @@ def main() -> int:
     phase_train_parity("transformer")
     phase_train_profile(state, batch, steps_per_s, "transformer")
     del state
+    torch.cuda.empty_cache()
+    phase_fit(conv_steps_per_s)
 
     fwd_src = "cultionet_tpu_torch/ops/csrc/na2d_fwd.cu"
     bwd_src = "cultionet_tpu_torch/ops/csrc/na2d_bwd.cu"
@@ -1319,6 +1825,12 @@ def main() -> int:
                     "cultionet_tpu_torch/ops/csrc/temporal_bwd.cu",
                     f"{temporal_pallas}:150",
                     train_t_launches["temporal_bwd"], temporal_bwd,
+                ),
+                kernel_entry(
+                    "na_block_fwd",
+                    "cultionet_tpu_torch/ops/csrc/na_block_fwd.cu",
+                    f"{pallas}:1030",
+                    na_block_launches["na_block_fwd"], na_block,
                 ),
             ]
         }

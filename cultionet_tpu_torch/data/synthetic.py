@@ -1,8 +1,9 @@
 """Synthetic chips for tests and the chip smoke run (port of
 cultionet_tpu/data/synthetic.py::create_batch): random (B, T, H, W, C)
-series, labels in {-1, 0, 1, 2} (weak label -1 included) and random
-boundary distances, drawn with numpy in the JAX function's order, so one
-seed gives both packages the same ``x``, ``y`` and ``bdist``."""
+series, labels in {-1, 0, 1, 2} (weak label -1 included), random boundary
+distances, geo bounds (with their centroids as lat/lon) and chip names,
+drawn with numpy in the JAX function's order, so one seed gives both
+packages the same batch."""
 
 import typing as T
 
@@ -28,17 +29,26 @@ def create_batch(
     )
     y = rng.integers(low=-1, high=3, size=(batch_size, height, width))
     bdist = rng.random((batch_size, height, width), dtype=np.float32)
-    # The JAX batch then draws bounds, a chip id and a year; draw them too
-    # so that ``rng`` leaves here in the same state.
-    rng.uniform(-180, 180, size=batch_size)
-    rng.uniform(0, 1, size=batch_size)
-    rng.uniform(-90, 89, size=batch_size)
-    rng.uniform(0, 1, size=batch_size)
-    rng.integers(low=0, high=99_999)
-    rng.choice([2020, 2021, 2022, 2023])
+    left = rng.uniform(-180, 180, size=batch_size)
+    right = left + rng.uniform(0, 1, size=batch_size)
+    bottom = rng.uniform(-90, 89, size=batch_size)
+    top = bottom + rng.uniform(0, 1, size=batch_size)
+    idx = rng.integers(low=0, high=99_999)
+    year = int(rng.choice([2020, 2021, 2022, 2023]))
 
-    return Batch(
+    def bound(values):
+        return torch.from_numpy(values.astype(np.float32))
+
+    batch = Batch(
         x=torch.from_numpy(x),
         y=torch.from_numpy(y.astype(np.int32)),
         bdist=torch.from_numpy(bdist),
+        left=bound(left),
+        bottom=bound(bottom),
+        right=bound(right),
+        top=bound(top),
+        batch_id=tuple(
+            f"data_{idx + i:06d}_{year}_none.npz" for i in range(batch_size)
+        ),
     )
+    return batch.with_centroids()

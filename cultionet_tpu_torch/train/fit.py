@@ -1,0 +1,473 @@
+"""The training loop (port of cultionet_tpu/train/fit.py::fit, for one
+card).
+
+``fit(params)`` splits the dataset into train and validation chips, loads
+them in batches with background prefetch to the device, builds the
+CLI-default optimizer (AdamW with the OneCycle learning rate and beta1
+cycle, global-norm clip), resumes from the ``last`` checkpoint when there
+is one, and runs epochs of training then validation. It writes
+``history.csv`` (and, when asked, the per-batch validation metrics), keeps
+``last`` every epoch and ``best`` by ``val_score``, averages the weights
+over the last epochs when asked (stochastic weight averaging, then the
+BatchNorm statistics re-estimated), and scores a test set into
+``test.metrics``. Dropout draws only from a ``torch.Generator`` seeded with
+``random_seed``.
+
+Not ported yet (each raises ``NotImplementedError`` in ``check_ported``):
+host augmentation (``augment_prob > 0``), in-step augmentation, the
+chipstore and device-resident paths (``use_chipstore``), more than one
+device or process, FSDP, ``auto_lr_find``, ``model_pruning``, user
+partition files, and the model options off the default path.
+"""
+
+import csv
+import dataclasses
+import json
+import logging
+import typing as T
+from pathlib import Path
+
+import torch
+from torch.func import functional_call
+
+from ..config import CultionetParams
+from ..data.loader import ChipLoader
+from ..models import CultioNet
+from ..nn.dropout import dropout_rng
+from ..utils.device import resolve_device
+from .checkpoint import Checkpointer
+from .optim import build_momentum_schedule, build_optimizer, build_schedule
+from .precision import cast_floating, resolve_dtype
+from .step import (
+    TrainState,
+    class_weights_from_counts,
+    create_train_state,
+    make_eval_step,
+    make_train_step,
+)
+
+logger = logging.getLogger(__name__)
+
+FINAL_NAMES = ("final_a", "final_b", "final_c", "final_combine")
+# Model options of the JAX configuration the port does not build yet, with
+# the value that means "off".
+_UNPORTED_MODEL_OPTIONS = {
+    "pool_by_max": False,
+    "batchnorm_first": False,
+    "use_latlon": False,
+    "remat": False,
+}
+
+
+@dataclasses.dataclass
+class FitResult:
+    state: T.Optional[TrainState]
+    model: CultioNet
+    history: T.List[T.Dict[str, float]]
+    best_score: float
+
+
+def check_ported(params: CultionetParams) -> None:
+    """Raise ``NotImplementedError`` for the options ``fit`` does not run
+    yet, naming each."""
+    cuts = {
+        "augment_prob > 0 (host augmentation)": params.augment_prob > 0,
+        "device_augment / device_augment_noise (in-step augmentation)": (
+            params.device_augment or params.device_augment_noise > 0
+        ),
+        "use_chipstore (chipstore and device-resident data)": bool(
+            params.use_chipstore
+        ),
+        "devices > 1": params.devices > 1,
+        "fsdp": params.fsdp,
+        "multi-process training": torch.distributed.is_available()
+        and torch.distributed.is_initialized(),
+        "auto_lr_find": params.auto_lr_find,
+        "model_pruning": params.model_pruning,
+        "user partition files (spatial_partitions other than 'spatial')": (
+            params.spatial_partitions not in (None, "spatial")
+        ),
+    }
+    refused = [name for name, cut in cuts.items() if cut]
+    if refused:
+        raise NotImplementedError(
+            "fit: not ported yet: " + ", ".join(refused)
+        )
+
+
+def model_from_kwargs(in_channels: int, kwargs: T.Mapping) -> CultioNet:
+    """The port's CultioNet from the JAX model's keyword arguments
+    (``CultionetParams.get_model_kwargs`` or a checkpoint's hyperparams);
+    options the port does not build yet raise if they are on."""
+    kwargs = dict(kwargs)
+    for name, off in _UNPORTED_MODEL_OPTIONS.items():
+        if kwargs.pop(name, off) != off:
+            raise NotImplementedError(f"model option {name} is not ported yet")
+    return CultioNet(in_channels=in_channels, **kwargs)
+
+
+def build_model(params: CultionetParams) -> CultioNet:
+    return model_from_kwargs(params.in_channels, params.get_model_kwargs())
+
+
+def _append_csv(path: Path, row: T.Dict[str, T.Any]) -> None:
+    """Append one row to a CSV file, writing the header when creating it."""
+    path.parent.mkdir(parents=True, exist_ok=True)
+    new = not path.exists()
+    with open(path, "a", newline="") as fh:
+        writer = csv.DictWriter(fh, fieldnames=list(row))
+        if new:
+            writer.writeheader()
+        writer.writerow(row)
+
+
+def _append_batch_metrics(
+    ckpt_dir: Path, rows: T.List[T.Dict[str, T.Any]]
+) -> None:
+    """Append an epoch's per-validation-batch rows to
+    ``batch_metrics.parquet``, or to ``batch_metrics.csv`` where no parquet
+    engine is installed."""
+    if not rows:
+        return
+    try:
+        import pandas as pd
+
+        path = ckpt_dir / "batch_metrics.parquet"
+        frame = pd.DataFrame(rows)
+        if path.exists():
+            frame = pd.concat([pd.read_parquet(path), frame])
+        ckpt_dir.mkdir(parents=True, exist_ok=True)
+        frame.to_parquet(path)
+    except (ImportError, OSError):
+        for row in rows:
+            _append_csv(ckpt_dir / "batch_metrics.csv", row)
+
+
+def _mean_metrics(
+    rows: T.List[T.Tuple[int, T.Dict[str, torch.Tensor]]]
+) -> T.Dict[str, float]:
+    """Batch-size weighted mean of metric dicts, in the JAX order."""
+    total = sum(n for n, _ in rows)
+    return {
+        key: float(sum(n * float(m[key]) for n, m in rows) / max(total, 1))
+        for key in rows[0][1]
+    }
+
+
+def _is_final(name: str) -> bool:
+    return any(part in FINAL_NAMES for part in name.split("."))
+
+
+def _trainable_mask(model: CultioNet, finetune: T.Optional[str]) -> T.List[bool]:
+    """Per parameter (in ``model.parameters()`` order): 'all' trains
+    everything; 'fc' or None only the final heads."""
+    return [
+        finetune == "all" or _is_final(name)
+        for name, _ in model.named_parameters()
+    ]
+
+
+def _resolve_class_weights(params: CultionetParams):
+    """(bg, fg) loss weights when ``scale_pos_weight`` is on: explicit
+    ``class_counts`` first, else the NormValues pixel counts."""
+    if not params.scale_pos_weight:
+        return None
+    crop = edge = None
+    counts = params.class_counts
+    if isinstance(counts, dict):
+        crop, edge = counts.get("crop"), counts.get("edge")
+    elif counts is not None:
+        crop, edge = counts
+    if crop is None or edge is None:
+        nv = getattr(params.dataset, "norm_values", None)
+        if nv is not None:
+            crop = nv.dataset_crop_counts if crop is None else crop
+            edge = nv.dataset_edge_counts if edge is None else edge
+    if crop is None or edge is None:
+        logger.warning(
+            "scale_pos_weight=True but no class counts available "
+            "(set class_counts or attach NormValues); proceeding unweighted"
+        )
+        return None
+    return class_weights_from_counts(crop, edge)
+
+
+def _schedule_steps(params: CultionetParams, steps_per_epoch: int) -> int:
+    return max(1, steps_per_epoch // max(1, params.accumulate_grad_batches))
+
+
+def _build_tx(params: CultionetParams, steps_per_epoch: int):
+    steps = _schedule_steps(params, steps_per_epoch)
+    return build_optimizer(
+        optimizer=params.optimizer,
+        learning_rate=build_schedule(
+            params.lr_scheduler,
+            learning_rate=params.learning_rate,
+            epochs=params.epochs,
+            steps_per_epoch=steps,
+            steplr_step_size=params.steplr_step_size,
+        ),
+        weight_decay=params.weight_decay,
+        eps=params.eps,
+        gradient_clip_val=params.gradient_clip_val,
+        gradient_clip_algorithm=params.gradient_clip_algorithm,
+        accumulate_grad_batches=params.accumulate_grad_batches,
+        # torch's OneCycleLR cycles beta1 opposite the learning rate.
+        b1_schedule=build_momentum_schedule(
+            params.lr_scheduler, params.epochs, steps
+        )
+        if params.optimizer == "AdamW"
+        else None,
+    )
+
+
+@torch.no_grad()
+def _reestimate_batch_stats(
+    state: TrainState, loader, precision: str, device: torch.device
+) -> TrainState:
+    """Recompute the BatchNorm running statistics under the current (SWA
+    averaged) parameters: training-mode forward passes over the train
+    loader in the compute type, outputs discarded, dropout drawn from a
+    generator seeded 0 (the JAX pass's ``PRNGKey(0)``)."""
+    model = state.model.train()
+    compute_dtype = resolve_dtype(precision)
+    generator = torch.Generator(device=device).manual_seed(0)
+    run_params = cast_floating(dict(model.named_parameters()), compute_dtype)
+    with dropout_rng(generator):
+        for batch in loader:
+            x = batch.to(device).dequantize().x.to(compute_dtype)
+            functional_call(model, run_params, (x,))
+    return state
+
+
+def _load_pretrained(
+    model: CultioNet,
+    pretrained_state: T.Union[TrainState, T.Mapping[str, torch.Tensor]],
+    finetune: T.Optional[str],
+) -> None:
+    """Load pretrained parameters and buffers into ``model``; with
+    ``finetune=None`` its final heads keep their fresh initialization."""
+    if isinstance(pretrained_state, TrainState):
+        pretrained_state = pretrained_state.model.state_dict()
+    fresh = model.state_dict()
+    merged = {
+        name: fresh[name] if finetune is None and _is_final(name) else value
+        for name, value in pretrained_state.items()
+    }
+    model.load_state_dict(merged, strict=True)
+
+
+def fit(
+    params: CultionetParams,
+    pretrained_state: T.Optional[
+        T.Union[TrainState, T.Mapping[str, torch.Tensor]]
+    ] = None,
+    device="cuda",
+) -> FitResult:
+    """Train CultioNet from a CultionetParams configuration on ``device``.
+
+    ``pretrained_state`` (a ``TrainState`` or a state dict of the same
+    model, for transfer learning) seeds the parameters and BatchNorm
+    statistics, and ``params.finetune`` chooses which parameters train:
+    'all', or else only the final heads (which ``finetune=None`` also
+    re-initializes).
+    """
+    device = resolve_device(device)
+    check_ported(params)
+    params.check_checkpoint()
+
+    dataset = params.dataset
+    if params.in_channels is None:
+        params.update_channels(dataset)
+
+    train_ds, val_ds = dataset.split_train_val(
+        val_frac=params.val_frac,
+        spatial_balance=params.spatial_partitions is not None,
+    )
+    train_ds.augment_prob = params.augment_prob
+    train_loader = ChipLoader(
+        train_ds,
+        batch_size=params.batch_size,
+        shuffle=True,
+        drop_last=True,
+        device=device,
+    )
+    val_loader = ChipLoader(val_ds, batch_size=params.batch_size, device=device)
+    steps_per_epoch = max(1, len(train_loader))
+
+    model = build_model(params)
+    # Placeholder optimizer: the real one is bound once the trainable mask
+    # is known.
+    state = create_train_state(
+        model,
+        build_optimizer(optimizer=params.optimizer),
+        seed=params.random_seed,
+        device=device,
+    )
+    trainable = None
+    if pretrained_state is not None:
+        _load_pretrained(state.model, pretrained_state, params.finetune)
+        trainable = _trainable_mask(state.model, params.finetune)
+    tx = _build_tx(params, steps_per_epoch)
+    state.optimizer = tx.init(state.model.parameters(), trainable)
+
+    lr_schedule = build_schedule(
+        params.lr_scheduler,
+        learning_rate=params.learning_rate,
+        epochs=params.epochs,
+        steps_per_epoch=_schedule_steps(params, steps_per_epoch),
+        steplr_step_size=params.steplr_step_size,
+    )
+    generator = torch.Generator(device=device).manual_seed(params.random_seed)
+
+    ckpt = None
+    start_epoch = 0
+    hyperparams = {
+        **{
+            k: (list(v) if isinstance(v, (list, tuple)) else v)
+            for k, v in params.get_model_kwargs().items()
+        },
+        "in_channels": params.in_channels,
+        "edge_class": params.edge_class,
+        "loss_name": str(params.loss_name),
+        # Data-pipeline flags that serving must reproduce.
+        "log_transform": bool(train_ds.log_transform),
+        "normalized_input": train_ds.norm_values is not None,
+    }
+    if params.ckpt_file is not None:
+        ckpt_file = Path(params.ckpt_file)
+        ckpt = Checkpointer(ckpt_file.parent / f"{ckpt_file.stem}_store")
+        if ckpt.has_last():
+            meta = ckpt.load_meta("last")
+            state = ckpt.restore(state, "last", generator=generator)
+            start_epoch = meta["epoch"] + 1
+            # Replay the shuffles of the finished epochs, so the resumed
+            # epochs see the batches an uninterrupted run would.
+            train_loader.skip_epochs(start_epoch)
+            logger.info(f"Resumed from epoch {meta['epoch']}")
+
+    class_weights = _resolve_class_weights(params)
+    step_kwargs = dict(
+        loss_name=params.loss_name,
+        edge_class=params.edge_class,
+        precision=params.compute_precision,
+        class_weights=class_weights,
+        device=device,
+    )
+    train_step = make_train_step(**step_kwargs)
+    eval_step = make_eval_step(**step_kwargs)
+
+    history: T.List[T.Dict[str, float]] = []
+    best_score = float("inf")
+    if ckpt is not None and ckpt.has_best():
+        best_score = ckpt.load_meta("best")["metrics"].get(
+            "val_score", float("inf")
+        )
+    if params.skip_train:
+        return FitResult(
+            state=state, model=model, history=history, best_score=best_score
+        )
+
+    swa_params = None
+    swa_count = 0
+    swa_start_epoch = int(
+        params.epochs * params.stochastic_weight_averaging_start
+    )
+    for epoch in range(start_epoch, params.epochs):
+        train_rows = []
+        for batch in train_loader:
+            state, logs = train_step(state, batch, generator)
+            train_rows.append((batch.num_samples, logs))
+
+        val_rows = []
+        batch_metric_rows = []
+        for batch_idx, batch in enumerate(val_loader):
+            val_rows.append((batch.num_samples, eval_step(state, batch)))
+            if params.save_batch_val_metrics and params.ckpt_file is not None:
+                batch_metric_rows.append(
+                    {
+                        "epoch": epoch,
+                        "batch": batch_idx,
+                        "num_samples": batch.num_samples,
+                        **{k: float(v) for k, v in val_rows[-1][1].items()},
+                    }
+                )
+        if batch_metric_rows:
+            _append_batch_metrics(
+                Path(params.ckpt_file).parent, batch_metric_rows
+            )
+
+        train_metrics = _mean_metrics(train_rows)
+        val_metrics = _mean_metrics(val_rows)
+        row = {
+            "epoch": epoch,
+            "loss": train_metrics["loss"],
+            "val_loss": val_metrics["loss"],
+            "val_score": val_metrics["score"],
+            "vef1": val_metrics["edge_f1"],
+            "vcf1": val_metrics["crop_f1"],
+            "vmae": val_metrics["dist_mae"],
+            "lr_sch": float(
+                lr_schedule(
+                    (epoch + 1)
+                    * steps_per_epoch
+                    // max(1, params.accumulate_grad_batches)
+                )
+            ),
+        }
+        history.append(row)
+        if params.ckpt_file is not None:
+            _append_csv(Path(params.ckpt_file).parent / "history.csv", row)
+        logger.info(
+            f"epoch {epoch}: loss={row['loss']:.4f} "
+            f"val_loss={row['val_loss']:.4f} val_score={row['val_score']:.4f}"
+        )
+
+        if params.stochastic_weight_averaging and epoch >= swa_start_epoch:
+            current = {
+                n: p.detach().float() for n, p in state.model.named_parameters()
+            }
+            if swa_params is None:
+                swa_params = {n: p.clone() for n, p in current.items()}
+                swa_count = 1
+            else:
+                swa_count += 1
+                for n, avg in swa_params.items():
+                    avg += (current[n] - avg) / swa_count
+
+        if ckpt is not None:
+            ckpt.save_last(
+                state, epoch, metrics=row, hyperparams=hyperparams,
+                generator=generator,
+            )
+            if row["val_score"] < best_score:
+                best_score = row["val_score"]
+                ckpt.save_best(
+                    state, epoch, metrics=row, hyperparams=hyperparams,
+                    generator=generator,
+                )
+
+    if swa_params is not None:
+        with torch.no_grad():
+            for n, p in state.model.named_parameters():
+                p.copy_(swa_params[n])
+        state = _reestimate_batch_stats(
+            state, train_loader, params.compute_precision, device
+        )
+        if ckpt is not None:
+            ckpt.save_last(
+                state, params.epochs - 1, metrics={"swa": 1.0},
+                hyperparams=hyperparams, generator=generator,
+            )
+
+    if params.test_dataset is not None and params.ckpt_file is not None:
+        test_loader = ChipLoader(
+            params.test_dataset, batch_size=params.batch_size, device=device
+        )
+        test_rows = [(b.num_samples, eval_step(state, b)) for b in test_loader]
+        out_path = Path(params.ckpt_file).parent / "test.metrics"
+        out_path.write_text(json.dumps(_mean_metrics(test_rows), indent=2))
+
+    return FitResult(
+        state=state, model=model, history=history, best_score=best_score
+    )

@@ -128,8 +128,15 @@ class OptimizerSpec:
     accumulate_grad_batches: int
     b1_schedule: T.Optional[Schedule]
 
-    def init(self, params: T.Iterable[Tensor]) -> "Optimizer":
-        return Optimizer(list(params), self)
+    def init(
+        self,
+        params: T.Iterable[Tensor],
+        trainable: T.Optional[T.Sequence[bool]] = None,
+    ) -> "Optimizer":
+        """Bind to ``params``; where ``trainable`` is False the parameter
+        receives no update (optax's ``masked(set_to_zero())`` after the
+        chain: its gradient still counts in the global-norm clip)."""
+        return Optimizer(list(params), self, trainable)
 
 
 def build_optimizer(
@@ -170,9 +177,19 @@ class Optimizer:
     """An ``OptimizerSpec`` bound to parameters. ``count`` is the number of
     updates applied (optax's inner count); the schedules are read at it."""
 
-    def __init__(self, params: T.List[Tensor], spec: OptimizerSpec):
+    def __init__(
+        self,
+        params: T.List[Tensor],
+        spec: OptimizerSpec,
+        trainable: T.Optional[T.Sequence[bool]] = None,
+    ):
         self.params = params
         self.spec = spec
+        if trainable is None:
+            trainable = [True] * len(params)
+        if len(trainable) != len(params):
+            raise ValueError("one trainable flag per parameter")
+        self.trainable = list(trainable)
         self.count = 0
         self.mini_step = 0
         self._acc: T.Optional[T.List[Tensor]] = None
@@ -244,12 +261,33 @@ class Optimizer:
             group["lr"] = self._learning_rate()
             if self.spec.optimizer == "AdamW":
                 group["betas"] = (self._beta1(), group["betas"][1])
-        for p, g in zip(self.params, self._clip(grads)):
-            p.grad = g
+        for p, g, train in zip(self.params, self._clip(grads), self.trainable):
+            p.grad = g if train else None  # torch skips a None gradient
         self.torch_optimizer.step()
         self.zero_grad()
         self.count += 1
         return True
+
+    def state_dict(self) -> dict:
+        """Everything ``step`` carries between calls: the torch optimizer's
+        state, the update count, the accumulation position and sums."""
+        return {
+            "torch_optimizer": self.torch_optimizer.state_dict(),
+            "count": self.count,
+            "mini_step": self.mini_step,
+            "acc": self._acc,
+        }
+
+    def load_state_dict(self, state: dict) -> None:
+        self.torch_optimizer.load_state_dict(state["torch_optimizer"])
+        self.count = int(state["count"])
+        self.mini_step = int(state["mini_step"])
+        acc = state["acc"]
+        self._acc = (
+            None
+            if acc is None
+            else [a.to(p.device) for a, p in zip(acc, self.params)]
+        )
 
     def zero_grad(self) -> None:
         for p in self.params:

@@ -97,3 +97,29 @@ def load_flax(module: nn.Module, variables: T.Mapping[str, T.Mapping]):
             state[key] = torch.zeros_like(value)
     module.load_state_dict(state, strict=True)
     return module
+
+
+def na_block_params(
+    arrays: T.Mapping[str, T.Any],
+    device="cuda",
+    dtype: torch.dtype = torch.float32,
+) -> T.Dict[str, torch.Tensor]:
+    """The JAX fused NA block's parameter dict (``ln1_scale``, ``ln1_bias``,
+    ``w_qkv``, ``b_qkv``, ``w_proj``, ``b_proj``, ``ln2_scale``,
+    ``ln2_bias``; anything ``np.asarray`` reads) as tensors of ``dtype`` on
+    ``device`` for ``ops/na_block.py``. The layout is the same (``x @ W``),
+    so nothing is transposed; a missing or an extra key raises, named."""
+    from ..ops.na_block import PARAM_KEYS
+
+    missing = sorted(set(PARAM_KEYS) - set(arrays))
+    extra = sorted(set(arrays) - set(PARAM_KEYS))
+    if missing or extra:
+        raise ValueError(
+            f"na_block parameters: missing {missing}, unexpected {extra}"
+        )
+    return {
+        key: torch.as_tensor(np.asarray(arrays[key])).to(
+            device=device, dtype=dtype
+        )
+        for key in PARAM_KEYS
+    }
