@@ -14,8 +14,9 @@ on the first phase that fails:
 3. kernel_check na2d_fwd: the NA forward against its plain PyTorch version
    on the card, at the predict path's shapes (fp32 <= 1e-5; bf16 <= 2e-2
    against the plain version in fp32 on the same bf16 inputs), at ragged
-   shapes and larger kernel sizes; times (median of CUDA-event-timed
-   launches) beside the bound and the plain version's time.
+   shapes and larger kernel sizes; device times (below) beside the bound,
+   the share of the bound and the plain version's time; the tile plan
+   each launch ran.
 4. kernel_check na2d_fwd_drop: the dropout forward at the train path's
    shapes: at p = 0 equal to na2d_fwd bit for bit; at p = 0.2 against the
    plain version given ``dropout_keep_mask`` of the same seed (same
@@ -24,8 +25,9 @@ on the first phase that fails:
 5. kernel_check na2d_bwd / na2d_bwd_drop: dq, dk, dv against autograd of
    the plain version (with the same mask for the dropout variant) at the
    train shapes and the ragged and k = 5/7 shapes (fp32 <= 1e-4; bf16
-   <= 5e-2 against the fp32 plain version on the same bf16 inputs); times
-   beside the bound and the plain version's forward + backward.
+   <= 5e-2 against the fp32 plain version on the same bf16 inputs); two
+   launches on the same inputs give equal bits; times beside the bound
+   and the plain version's forward + backward.
 6. kernel_check temporal_fwd / temporal_bwd: the temporal-attention
    kernels against the plain version (backward: against its autograd) at
    the transformer's calls on the two main paths (a layer, T = 12 x 12,
@@ -77,8 +79,9 @@ on the first phase that fails:
 14. eval: make_eval_step at bf16 on the trained conv state: finite
     metrics, F-scores in [0, 1], MCC in [-1, 1].
 15. train_profile(_transformer): device time by kernel for one bf16 train
-    step, and host time by operator for another (the profiler's own
-    overhead included).
+    step (each NA kernel, na2d_fwd_kernel, na2d_bwd_query_kernel and
+    na2d_bwd_key_kernel, must show), and host time by operator for another
+    (the profiler's own overhead included).
 16. fit (main path of the fit slice): 20 seeded int16 chip files (100x100,
     T=12, 3 bands, labels, boundary distances) in a temporary directory,
     their NormValues, then ``model.fit`` with the CLI's training defaults
@@ -92,6 +95,12 @@ on the first phase that fails:
     ScenePredictor on the 420x420 scene: finite, 12 na2d_fwd launches.
     Host-timed train chips/s of one epoch beside the bare step's, and the
     resumed run's device idle share.
+
+Kernel times (``ms``, ``library_ms``) are device times: ``device_ms``
+queues 20 calls behind a sleep kernel so the card runs them back to back
+and the host's dispatch is hidden; ``call_ms`` (NA kernels) and
+``plain_ms`` time single calls with CUDA events (``median_ms``), host
+dispatch included where the card is faster than the host.
 
 Kernel launch counts are zeroed just before each path (8, 10, 12, 13, 16)
 and read just after. Then the kernels line (seven kernels), and last
@@ -159,6 +168,36 @@ def median_ms(fn, iters: int = 25, warmup: int = 3) -> float:
         pairs.append((start, end))
     torch.cuda.synchronize()
     return statistics.median(s.elapsed_time(e) for s, e in pairs)
+
+
+def device_ms(fn, launches: int = 20, reps: int = 5) -> float:
+    """Device time of one call of ``fn``: ``launches`` calls queued behind
+    ``torch.cuda._sleep``, long enough for the host to queue them all, so
+    the card runs them back to back and the host's dispatch is hidden (the
+    card's gaps between kernels stay in); the median over ``reps``.
+    ``median_ms`` times single calls, host dispatch included where the
+    card is faster than the host."""
+    fn()
+    torch.cuda.synchronize()
+    start = time.perf_counter()
+    for _ in range(launches):
+        fn()
+    torch.cuda.synchronize()
+    host_s = time.perf_counter() - start
+    times = []
+    for _ in range(reps):
+        # 4e9 cycles a second: at least twice the queueing time at the
+        # H100's clock (under 2 GHz).
+        torch.cuda._sleep(int(host_s * 4e9) + 10_000)
+        begin = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        begin.record()
+        for _ in range(launches):
+            fn()
+        end.record()
+        torch.cuda.synchronize()
+        times.append(begin.elapsed_time(end) / launches)
+    return statistics.median(times)
 
 
 def fused_qkv(shape, dtype, generator):
@@ -229,6 +268,26 @@ def summarize(records, dtype) -> dict:
     }
 
 
+def tile_plans(passes, *tensors) -> dict:
+    """The tile plan of each pass (name -> (kernel_size, dilation)) of a
+    launch on ``tensors`` (``natten_cuda._tile_plan``), with the elements
+    per load."""
+    import dataclasses
+
+    from cultionet_tpu_torch.ops import natten_cuda
+
+    _, h, w, _, d = tensors[0].shape
+    vec = natten_cuda._vector_width(d, *tensors)
+    return {"vec": vec} | {
+        p: dataclasses.asdict(
+            natten_cuda._tile_plan(
+                h, w, *passes[p], d, tensors[0].element_size(), p, vec
+            )
+        )
+        for p in passes
+    }
+
+
 def phase_device() -> str:
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
@@ -248,6 +307,45 @@ def phase_device() -> str:
         }
     )
     return smi
+
+
+def ptxas_report(log: str) -> list:
+    """nvcc's ``-Xptxas -v`` report as one entry per kernel: its name (by
+    ``c++filt`` where the machine has it), registers, and spill stores and
+    loads in bytes."""
+    import re
+
+    entries, name, spills = [], None, (0, 0)
+    for line in log.splitlines():
+        found = re.search(r"Function properties for (\S+)", line)
+        if found:
+            name = found.group(1)
+        found = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill", line)
+        if found:
+            spills = (int(found.group(1)), int(found.group(2)))
+        found = re.search(r"Used (\d+) registers", line)
+        if found and name:
+            entries.append([name, int(found.group(1)), *spills])
+            name, spills = None, (0, 0)
+    try:
+        names = subprocess.run(
+            ["c++filt"], input="\n".join(e[0] for e in entries),
+            capture_output=True, text=True, check=True, timeout=60,
+        ).stdout.splitlines()
+    except (OSError, subprocess.SubprocessError):
+        names = [e[0] for e in entries]
+    if len(names) != len(entries):
+        names = [e[0] for e in entries]
+    return [
+        {
+            "kernel": full.replace("(anonymous namespace)::", "")
+            .removeprefix("void ").split("(")[0],
+            "registers": regs,
+            "spill_stores": stores,
+            "spill_loads": loads,
+        }
+        for full, (_, regs, stores, loads) in zip(names, entries)
+    ]
 
 
 def phase_build() -> None:
@@ -275,11 +373,7 @@ def phase_build() -> None:
                 "phase": "build",
                 "kernel": name,
                 "library": str(path.name),
-                "ptxas": [
-                    line.strip()
-                    for line in log.splitlines()
-                    if "registers" in line or "spill" in line
-                ],
+                "ptxas": ptxas_report(log),
             }
         )
     emit({"phase": "build", "seconds": seconds})
@@ -317,13 +411,18 @@ def phase_kernels() -> dict:
             require(err <= tol, f"kernel disagrees with plain: {record}")
             if model_shape:
                 bound, by = na_bound_ms(shape, q.element_size())
-                record["ms"] = median_ms(lambda: na2d_cuda(q, kk, v, k, d))
+                record["ms"] = device_ms(lambda: na2d_cuda(q, kk, v, k, d))
+                record["call_ms"] = median_ms(
+                    lambda: na2d_cuda(q, kk, v, k, d)
+                )
                 record["plain_ms"] = median_ms(
                     lambda: neighborhood_attention_2d(q, kk, v, k, d),
                     iters=10,
                 )
                 record["bound_ms"] = bound
                 record["bound_by"] = by
+                record["share_of_bound"] = bound / record["ms"]
+            record["plan"] = tile_plans({"fwd": (k, d)}, q, kk, v)
             emit(record)
             records.append(record)
             del q, kk, v, out, ref
@@ -600,7 +699,10 @@ def phase_fwd_drop() -> dict:
             require(bool(torch.isfinite(out).all()), f"non-finite {record}")
             require(err <= tol, f"kernel disagrees with plain: {record}")
             bound, by = na_bound_ms(shape, q.element_size())
-            record["ms"] = median_ms(
+            record["ms"] = device_ms(
+                lambda: launch_na2d_fwd(q, kk, v, k, dil, p, seed)
+            )
+            record["call_ms"] = median_ms(
                 lambda: launch_na2d_fwd(q, kk, v, k, dil, p, seed)
             )
             record["plain_ms"] = median_ms(
@@ -612,6 +714,8 @@ def phase_fwd_drop() -> dict:
             )
             record["bound_ms"] = bound
             record["bound_by"] = by
+            record["share_of_bound"] = bound / record["ms"]
+            record["plan"] = tile_plans({"fwd": (k, dil)}, q, kk, v)
             emit(record)
             records.append(record)
             del q, kk, v, out, ref, base, at_zero
@@ -659,6 +763,7 @@ def phase_bwd() -> T.Dict[str, dict]:
                         return wts * mask.to(wts.dtype)
 
                 got = launch_na2d_bwd(q, kk, v, g, k, dil, p, run_seed)
+                again = launch_na2d_bwd(q, kk, v, g, k, dil, p, run_seed)
                 leaves = [
                     t.detach().float().requires_grad_() for t in (q, kk, v)
                 ]
@@ -691,6 +796,13 @@ def phase_bwd() -> T.Dict[str, dict]:
                     f"non-finite {record}",
                 )
                 require(max(errs) <= tol, f"kernel disagrees: {record}")
+                require(
+                    all(torch.equal(a, b) for a, b in zip(got, again)),
+                    f"two launches differ: {record}",
+                )
+                record["plan"] = tile_plans(
+                    {"bwd_query": (k, dil), "bwd_key": (k, dil)}, q, kk, v, g
+                )
                 if train_shape:
                     bound, by = na_bwd_bound_ms(shape, q.element_size())
 
@@ -703,17 +815,20 @@ def phase_bwd() -> T.Dict[str, dict]:
                         )
                         return torch.autograd.grad(out, leaves, g)
 
-                    record["ms"] = median_ms(
-                        lambda: launch_na2d_bwd(
+                    def kernel():
+                        return launch_na2d_bwd(
                             q, kk, v, g, k, dil, p, run_seed
                         )
-                    )
+
+                    record["ms"] = device_ms(kernel)
+                    record["call_ms"] = median_ms(kernel)
                     record["plain_ms"] = median_ms(plain_fwd_bwd, iters=10)
                     record["bound_ms"] = bound
                     record["bound_by"] = by
+                    record["share_of_bound"] = bound / record["ms"]
                 emit(record)
                 records[name].append(record)
-                del got, ref, leaves
+                del got, again, ref, leaves
             del q, kk, v, g
     torch.cuda.empty_cache()
     return {name: summarize(r, "bfloat16") for name, r in records.items()}
@@ -808,9 +923,9 @@ def sdpa_ms(q, k, v, heads: int, g=None):
     try:
         run(q.shape[0])
         torch.cuda.synchronize()
-        return median_ms(lambda: run(q.shape[0]), iters=10), False
+        return device_ms(lambda: run(q.shape[0]), 5, 3), False
     except RuntimeError:
-        return median_ms(lambda: run(65535), iters=10), True
+        return device_ms(lambda: run(65535), 5, 3), True
 
 
 def _temporal_record(kernel, row, dtype, err, tol, **extra):
@@ -848,7 +963,7 @@ def phase_temporal_fwd() -> dict:
             require(err <= tol, f"kernel disagrees with plain: {record}")
             if row in TEMPORAL_ROWS:
                 bound, by = temporal_bound_ms(row, q, False)
-                record["ms"] = median_ms(
+                record["ms"] = device_ms(
                     lambda: launch_temporal_fwd(q, k, v, heads)
                 )
                 record["plain_ms"] = median_ms(
@@ -909,7 +1024,7 @@ def phase_temporal_bwd() -> dict:
                     out = temporal_attention_reference(*leaves, heads)
                     return torch.autograd.grad(out, leaves, g)
 
-                record["ms"] = median_ms(
+                record["ms"] = device_ms(
                     lambda: launch_temporal_bwd(q, k, v, g, heads)
                 )
                 record["plain_ms"] = median_ms(plain_fwd_bwd, iters=10)
@@ -1089,7 +1204,7 @@ def phase_na_block_fwd() -> dict:
                 failures.append(record)
             if main:
                 bound, by = na_block_bound_ms(site, x.element_size())
-                record["ms"] = median_ms(
+                record["ms"] = device_ms(
                     lambda: launch_na_block_fwd(x, params, heads, k, d)
                 )
                 record["plain_ms"] = median_ms(
@@ -1099,8 +1214,8 @@ def phase_na_block_fwd() -> dict:
                     key: (v.t().contiguous() if key.startswith("w_") else v).to(dtype)
                     for key, v in params.items()
                 }
-                record["library_ms"] = median_ms(
-                    lambda: na_block_composition(x, cast, heads, k, d), iters=10
+                record["library_ms"] = device_ms(
+                    lambda: na_block_composition(x, cast, heads, k, d), 10, 3
                 )
                 record["library"] = "composition"
                 record["bound_ms"] = bound
@@ -1464,6 +1579,8 @@ def phase_train_profile(
     host = sorted(
         host_prof.key_averages(), key=lambda e: -e.self_cpu_time_total
     )
+    # The NA kernels by name (csrc/na2d_fwd.cu, na2d_bwd.cu); each must show,
+    # so a renamed kernel cannot report 0 ms.
     na = {
         name: sum(
             e.device_time_total for e in events if f"{name}_kernel" in e.key
@@ -1471,6 +1588,10 @@ def phase_train_profile(
         / 1e3
         for name in ("na2d_fwd", "na2d_bwd_query", "na2d_bwd_key")
     }
+    require(
+        all(ms > 0 for ms in na.values()),
+        f"train_profile: an NA kernel shows no device time {na}",
+    )
     temporal = {
         name: sum(
             e.device_time_total for e in events if f"{name}_kernel" in e.key
