@@ -33,10 +33,11 @@ on the first phase that fails:
    the transformer's calls on the two main paths (a layer, T = 12 x 12,
    and the pooling, 1 x 12 with the query broadcast over the pixels, at
    8 x 140^2 and 4 x 100^2 pixels), a ragged N, head_dim 2 at T = 13, 3
-   heads of 32, T = 24, and 600 query steps over 4 keys (the backward's
-   statistics in dynamic shared memory beyond 48 KB; fp32 only); same
-   limits as the NA kernels; two backward launches give equal bits; times
-   beside the bound, the plain version's and torch's
+   heads of 32, T = 24, 600 query steps over 4 keys (one pixel a tile;
+   backward in fp32 only), head_dim 64, rows not 16-byte aligned (C = 30)
+   and a pooling call with a ragged last tile; same limits as the NA
+   kernels; two backward launches give equal bits; the tile plan of each
+   launch; times beside the bound, the plain version's and torch's
    scaled_dot_product_attention's (the yardstick).
 7. kernel_check na_block_fwd: the fused NA block kernel (#7) against
    its plain version (``ops/na_block.py::na_block_plain``) at the
@@ -64,7 +65,9 @@ on the first phase that fails:
     padding 20: 25 windows in 4 batches of 8): 12 launches of na2d_fwd
     (and of temporal_fwd for the transformer), no others.
 11. forward_profile(_transformer): device time by kernel for one bf16
-    window batch.
+    window batch; with the transformer also layernorm_bounds: PyTorch's
+    LayerNorm calls by input shape (record_shapes), dtype and contiguity,
+    their device time beside a byte bound (rows x C read and written once).
 12. train / train_transformer (main paths): the CLI-default train step
     (hidden 64, dropout 0.2, TanimotoComplementLoss, AdamW + OneCycle +
     global-norm clip 1.0, "16-mixed") on one fixed seeded batch of 4
@@ -600,6 +603,57 @@ def device_time_by_kernel(prof, count: int):
     ]
 
 
+def layernorm_bounds(run, x) -> None:
+    """PyTorch's LayerNorm in one forward of ``run``: per input shape (the
+    profiler's ``record_shapes``), its calls, device time and byte bound
+    (rows x C read and written once in the input's dtype over the HBM
+    rate), with the dtype and contiguity a forward pre-hook saw."""
+    import math
+
+    from torch.profiler import ProfilerActivity, profile
+
+    seen = {}
+
+    def hook(module, args):
+        t = args[0]
+        seen[tuple(t.shape)] = (str(t.dtype).replace("torch.", ""),
+                                t.is_contiguous(), t.element_size())
+
+    hooks = [
+        m.register_forward_pre_hook(hook)
+        for m in run.modules() if isinstance(m, torch.nn.LayerNorm)
+    ]
+    try:
+        with torch.inference_mode(), profile(
+            activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
+            record_shapes=True,
+        ) as prof:
+            run(x)
+            torch.cuda.synchronize()
+    finally:
+        for h in hooks:
+            h.remove()
+    rows = []
+    for e in prof.key_averages(group_by_input_shape=True):
+        if e.key != "aten::layer_norm" or not e.input_shapes:
+            continue
+        shape = tuple(e.input_shapes[0])
+        dtype, contiguous, itemsize = seen.get(shape, ("unknown", None, 2))
+        per_call = math.prod(shape) * itemsize * 2 / HBM_BYTES_PER_S * 1e3
+        ms = e.device_time_total / 1e3
+        rows.append({
+            "shape": list(shape), "dtype": dtype, "contiguous": contiguous,
+            "calls": e.count, "device_ms": ms, "bound_ms": per_call * e.count,
+        })
+    emit({
+        "phase": "layernorm_bounds",
+        "rows": rows,
+        "device_ms": sum(r["device_ms"] for r in rows),
+        "bound_ms": sum(r["bound_ms"] for r in rows),
+        "calls": sum(r["calls"] for r in rows),
+    })
+
+
 def phase_profile(model, temporal_encoder: str = "conv") -> None:
     from torch.profiler import ProfilerActivity, profile
 
@@ -619,6 +673,8 @@ def phase_profile(model, temporal_encoder: str = "conv") -> None:
         name: sum(e.device_time_total for e in events if name in e.key) / 1e3
         for name in ("na2d_fwd", "temporal_fwd")
     }
+    if temporal_encoder != "conv":
+        layernorm_bounds(run, x)
     emit(
         {
             "phase": phase,
@@ -840,18 +896,25 @@ TEMPORAL_ROWS = [  # (label, N, Tq, S, C, heads): #5/#6 calls on the main paths
     ("train_layer", 4 * 100 * 100, 12, 12, 64, 4),
     ("train_pool", 4 * 100 * 100, 1, 12, 64, 4),
 ]
-TEMPORAL_EXTRA = [  # ragged N, the golden model's head_dim 2 at T = 13, 3 heads, T = 24
+TEMPORAL_EXTRA = [  # ragged N, the golden model's head_dim 2 at T = 13, 3 heads, T = 24, ...
     ("ragged", 37 * 41, 12, 12, 64, 4),
     ("hd2_t13", 2 * 70 * 70, 13, 13, 8, 4),
     ("heads3", 3000, 12, 12, 96, 3),
     ("t24", 3000, 24, 24, 64, 4),
     ("t24_pool", 3000, 1, 24, 64, 4),
-    # The backward's statistics of a pixel (600 x 8 x 12 bytes) take dynamic
-    # shared memory beyond 48 KB, and fewer pixels fit a block than would
-    # fill its threads. Its gradients sum 600 steps to magnitudes near 30,
-    # where bf16's rounding of the output alone passes the bf16 limit: the
+    # A pixel's tile (600 query rows and their statistics) fills most of a
+    # block's shared memory: one pixel a tile, one copy stage in the
+    # backward. Its gradients sum 600 steps to magnitudes near 30, where
+    # bf16's rounding of the output alone passes the bf16 limit: the
     # backward checks it in fp32 only.
     ("long_query", 40, 600, 4, 16, 8),
+    # head_dim 64 (four 16-wide MMA steps), rows that are not 16-byte
+    # aligned (C = 30: the kernels' element-wise copies, head_dim 10 read
+    # with zero-padded fragments), and a pooling call whose N is not a
+    # multiple of its tile.
+    ("hd64", 3000, 12, 12, 128, 2),
+    ("unaligned", 2000, 12, 12, 30, 3),
+    ("pool_ragged", 37 * 41, 1, 12, 64, 4),
 ]
 
 
@@ -894,6 +957,19 @@ def temporal_bound_ms(row, q: torch.Tensor, backward: bool):
     t_bytes = bytes_moved / HBM_BYTES_PER_S * 1e3
     t_ops = ops / FP32_OPS_PER_S * 1e3
     return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations")
+
+
+def temporal_plan(q, k, v, heads: int, backward: bool) -> dict:
+    """The tile plan a launch on these tensors runs
+    (``temporal_cuda._tile_plan``)."""
+    import dataclasses
+
+    from cultionet_tpu_torch.ops import temporal_cuda
+
+    plan = temporal_cuda._plan_for(q, k, v, heads, backward)
+    return dataclasses.asdict(plan) | {
+        "vec": temporal_cuda._vectorized(q.shape[2], q, k, v)
+    }
 
 
 def sdpa_ms(q, k, v, heads: int, g=None):
@@ -958,7 +1034,10 @@ def phase_temporal_fwd() -> dict:
             )
             err = (out.float() - ref).abs().max().item()
             tol = 1e-5 if dtype == torch.float32 else 2e-2
-            record = _temporal_record("temporal_fwd", row, dtype, err, tol)
+            record = _temporal_record(
+                "temporal_fwd", row, dtype, err, tol,
+                plan=temporal_plan(q, k, v, heads, False),
+            )
             require(bool(torch.isfinite(out).all()), f"non-finite {record}")
             require(err <= tol, f"kernel disagrees with plain: {record}")
             if row in TEMPORAL_ROWS:
@@ -1006,6 +1085,7 @@ def phase_temporal_bwd() -> dict:
             record = _temporal_record(
                 "temporal_bwd", row, dtype, max(errs), tol,
                 max_abs_err_dq_dk_dv=errs,
+                plan=temporal_plan(q, k, v, heads, True),
             )
             require(
                 all(bool(torch.isfinite(t).all()) for t in got),
