@@ -39,16 +39,21 @@ on the first phase that fails:
    kernels; two backward launches give equal bits; the tile plan of each
    launch; times beside the bound, the plain version's and torch's
    scaled_dot_product_attention's (the yardstick).
-7. kernel_check na_block_fwd: the fused NA block kernel (#7) against
-   its plain version (``ops/na_block.py::na_block_plain``) at the
-   decoder's three NA sites (B=8, C=256: 35^2 h8, 70^2 h4, 140^2 h4 d2)
-   and at a ragged 37x35, k = 1, C = 64 with 4 heads, B = 1 and C = 40
-   (padded channels): bf16 <= 2e-2 against the plain version in fp32 on
-   the same bf16 inputs; fp32 <= 2e-2 with at most 10% of the outputs
-   above 1e-4 (the block rounds intermediates to bf16; see
-   ``phase_na_block_fwd``); times beside the bound, the plain version's
-   and the port's unfused composition's (LayerNorm, linear, NA kernel #1,
-   linear, LayerNorm: no single PyTorch call computes the block).
+7. kernel_check na_block_fwd: the fused NA block kernel (#7, one launch
+   over coset tiles) against its plain version
+   (``ops/na_block.py::na_block_plain``) at the decoder's three NA sites
+   (B=8, C=256: 35^2 h8, 70^2 h4, 140^2 h4 d2) and at a ragged 37x35,
+   k = 1, C = 64 with 4 heads, B = 1 and C = 40 (padded channels): bf16
+   <= 2e-2 against the plain version in fp32 on the same bf16 inputs;
+   fp32 <= 2e-2 with at most 10% of the outputs above 1e-4 (the block
+   rounds intermediates to bf16; see ``phase_na_block_fwd``); the public
+   wrapper equal to the launch bit for bit; the tile plan of each launch;
+   times (``ms`` the launch on weights laid out once, ``prep_ms`` that
+   layout) beside the bound, the plain version's and the port's unfused
+   composition's (LayerNorm, linear, NA kernel #1, linear, LayerNorm: no
+   single PyTorch call computes the block); then na_block_fwd_profile:
+   one kernel in the profile of a launch at 140^2 d2, with its registers
+   and spills (ptxas).
 8. na_block_grad: ``fused_na_block`` forward and backward in fp32 at the
    three train sites (B=4: 25^2, 50^2, 100^2 d2): the gradients of x and
    of the eight parameters within 1e-5 of the largest entry of autograd of
@@ -314,22 +319,25 @@ def phase_device() -> str:
 
 def ptxas_report(log: str) -> list:
     """nvcc's ``-Xptxas -v`` report as one entry per kernel: its name (by
-    ``c++filt`` where the machine has it), registers, and spill stores and
-    loads in bytes."""
+    ``c++filt`` where the machine has it), registers, stack frame (local
+    arrays and spills) and spill stores and loads in bytes."""
     import re
 
-    entries, name, spills = [], None, (0, 0)
+    entries, name, frame = [], None, (0, 0, 0)
     for line in log.splitlines():
         found = re.search(r"Function properties for (\S+)", line)
         if found:
             name = found.group(1)
-        found = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill", line)
+        found = re.search(
+            r"(\d+) bytes stack frame, (\d+) bytes spill stores, (\d+) bytes "
+            r"spill", line
+        )
         if found:
-            spills = (int(found.group(1)), int(found.group(2)))
+            frame = tuple(int(g) for g in found.groups())
         found = re.search(r"Used (\d+) registers", line)
         if found and name:
-            entries.append([name, int(found.group(1)), *spills])
-            name, spills = None, (0, 0)
+            entries.append([name, int(found.group(1)), *frame])
+            name, frame = None, (0, 0, 0)
     try:
         names = subprocess.run(
             ["c++filt"], input="\n".join(e[0] for e in entries),
@@ -344,10 +352,11 @@ def ptxas_report(log: str) -> list:
             "kernel": full.replace("(anonymous namespace)::", "")
             .removeprefix("void ").split("(")[0],
             "registers": regs,
+            "stack_frame": stack,
             "spill_stores": stores,
             "spill_loads": loads,
         }
-        for full, (_, regs, stores, loads) in zip(names, entries)
+        for full, (_, regs, stack, stores, loads) in zip(names, entries)
     ]
 
 
@@ -1199,22 +1208,31 @@ def na_block_composition(x, params, heads: int, kernel_size: int, dilation: int)
 
 
 def na_block_profile() -> dict:
-    """Device time of kernel #7's two launches at the largest decoder site
-    in bf16 (one call, profiled)."""
+    """Device time of kernel #7 at the largest decoder site in bf16 (one
+    launch on prepared weights, profiled): the profile must show one
+    kernel, ``na_block_kernel``."""
     from torch.profiler import ProfilerActivity, profile
 
-    from cultionet_tpu_torch.ops.na_block_cuda import launch_na_block_fwd
+    from cultionet_tpu_torch.ops.na_block_cuda import (
+        launch_prepared,
+        prepare_weights,
+    )
 
     b, h, w, c, heads, k, d = NA_BLOCK_SITES[-1]
     gen = torch.Generator(device="cuda").manual_seed(13)
-    params = na_block_params_on_card(c, gen)
+    weights = prepare_weights(na_block_params_on_card(c, gen), heads)
     x = torch.randn(b, h, w, c, device="cuda", generator=gen).bfloat16()
-    launch_na_block_fwd(x, params, heads, k, d)
+    launch_prepared(x, weights, heads, k, d)
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        launch_na_block_fwd(x, params, heads, k, d)
+        launch_prepared(x, weights, heads, k, d)
         torch.cuda.synchronize()
-    _, total_us, top = device_time_by_kernel(prof, 6)
+    events, total_us, top = device_time_by_kernel(prof, 6)
+    names = [e.key for e in events]
+    require(
+        len(names) == 1 and "na_block_kernel" in names[0],
+        f"na_block_fwd_profile: one kernel expected, got {names}",
+    )
     return {"shape": [b, h, w, c], "dtype": "bfloat16",
             "device_ms": total_us / 1e3, "top": top}
 
@@ -1222,6 +1240,11 @@ def na_block_profile() -> dict:
 def phase_na_block_fwd() -> dict:
     """Kernel #7 against ``na_block_plain`` at the decoder's NA sites and
     the extras; every record is printed before the limits are applied.
+
+    ``ms`` times the launch on weights that ``prepare_weights`` laid out
+    once (as ``library_ms`` times the composition on weights cast once);
+    ``prep_ms`` times that preparation, which ``launch_na_block_fwd`` runs
+    on every call. The public wrapper must give the launch's bits.
 
     Limits. bf16 x: <= 2e-2 against the plain version in fp32 on the same
     bf16 inputs. fp32 x: <= 2e-2, and at most 10% of the outputs above
@@ -1235,8 +1258,16 @@ def phase_na_block_fwd() -> dict:
     card against itself on the CPU (``plain_card_vs_cpu``, the extras)
     shows the same spread.
 """
+    import dataclasses
+
+    from cultionet_tpu_torch.ops import build
     from cultionet_tpu_torch.ops.na_block import na_block_plain
-    from cultionet_tpu_torch.ops.na_block_cuda import launch_na_block_fwd
+    from cultionet_tpu_torch.ops.na_block_cuda import (
+        _tile_plan,
+        launch_na_block_fwd,
+        launch_prepared,
+        prepare_weights,
+    )
 
     gen = torch.Generator(device="cuda").manual_seed(11)
     records, failures = [], []
@@ -1244,10 +1275,11 @@ def phase_na_block_fwd() -> dict:
         b, h, w, c, heads, k, d = site
         main = site in NA_BLOCK_SITES
         params = na_block_params_on_card(c, gen)
+        weights = prepare_weights(params, heads)
         x32 = torch.randn(b, h, w, c, device="cuda", generator=gen)
         for dtype in (torch.float32, torch.bfloat16):
             x = x32.to(dtype)
-            out = launch_na_block_fwd(x, params, heads, k, d)
+            out = launch_prepared(x, weights, heads, k, d)
             ref = na_block_plain(x.float(), params, heads, k, d)
             torch.cuda.synchronize()
             diff = (out.float() - ref).abs()
@@ -1270,6 +1302,10 @@ def phase_na_block_fwd() -> dict:
             if dtype == torch.float32:
                 record["share_limit"] = 0.1
                 ok = ok and share <= 0.1
+            record["wrapper_equal"] = bool(
+                torch.equal(launch_na_block_fwd(x, params, heads, k, d), out)
+            )
+            ok = ok and record["wrapper_equal"]
             if not main and dtype == torch.float32:
                 cpu = na_block_plain(
                     x.cpu(), {key: v.cpu() for key, v in params.items()},
@@ -1285,7 +1321,10 @@ def phase_na_block_fwd() -> dict:
             if main:
                 bound, by = na_block_bound_ms(site, x.element_size())
                 record["ms"] = device_ms(
-                    lambda: launch_na_block_fwd(x, params, heads, k, d)
+                    lambda: launch_prepared(x, weights, heads, k, d)
+                )
+                record["prep_ms"] = device_ms(
+                    lambda: prepare_weights(params, heads), 10, 3
                 )
                 record["plain_ms"] = median_ms(
                     lambda: na_block_plain(x, params, heads, k, d), iters=10
@@ -1300,12 +1339,21 @@ def phase_na_block_fwd() -> dict:
                 record["library"] = "composition"
                 record["bound_ms"] = bound
                 record["bound_by"] = by
+                record["share_of_bound"] = bound / record["ms"]
+            record["plan"] = dataclasses.asdict(
+                _tile_plan(h, w, k, d, c, heads, x.element_size(), b)
+            )
             emit(record)
             records.append(record)
             del x, out, ref, diff
+        del weights
         torch.cuda.empty_cache()
     require(not failures, f"na_block_fwd disagrees with plain: {failures}")
-    emit({"phase": "na_block_fwd_profile", **na_block_profile()})
+    _, log = build.compile_library("na_block_fwd")
+    emit(
+        {"phase": "na_block_fwd_profile", **na_block_profile(),
+         "ptxas": ptxas_report(log)}
+    )
     summary = summarize(records, "bfloat16")
     summary["library_ms"] = sum(
         r["library_ms"] for r in records

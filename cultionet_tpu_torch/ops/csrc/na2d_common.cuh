@@ -16,8 +16,9 @@
 //    the softmax for the forward and for pass 1 of the backward, so the
 //    backward's weights are the forward's bit for bit;
 //  - the attention-dropout keep bit.
-// na_block_fwd.cu and the temporal kernels use the conversions, window_start
-// and warp_sum.
+// The temporal kernels use the conversions, the chunk loads and stores,
+// cp_async16 and warp_sum; na_block_fwd.cu those and the coset helpers,
+// group_sum and dynamic_smem.
 #pragma once
 
 #include <cuda_bf16.h>

@@ -7,7 +7,7 @@
 // the tiles with its two copy stages; and the fragment code of the bf16
 // tensor-core paths (mma.sync.m16n8k16 with ldmatrix operands): the logits
 // and products of one 16 x 16 chunk, which the forward and the backward
-// share.
+// share. na_block_fwd.cu uses the ldmatrix, mma and cp.async helpers.
 #pragma once
 
 #include <math.h>

@@ -26,9 +26,11 @@ import torch
 from cultionet_tpu.ops import natten_pallas as jax_block
 from cultionet_tpu_torch.ops import na_block as port
 from cultionet_tpu_torch.ops.na_block_cuda import (
-    _kernel_weights,
+    head_layout,
     launch_na_block_fwd,
     padded_channels,
+    prepare_weights,
+    unpack_weights,
 )
 from cultionet_tpu_torch.utils.params import na_block_params
 
@@ -162,30 +164,51 @@ def test_na_block_params_round_trip_and_names_bad_keys():
 
 
 def test_kernel_weight_padding_keeps_the_products():
-    """The wrapper pads C = 24 to 32 channels for the kernel; the padded
-    weights give the same q, k, v and projection on the real channels and
-    zeros on the padding."""
+    """The wrapper lays C = 24 out for the kernel: 32 input channels, each
+    head padded to 16 columns, heads grouped into passes, rows padded to
+    the copies' widths; the laid-out weights give the same q, k, v and
+    projection on the real channels and zeros on the padding (3 heads: one
+    pass of 3; 6 heads: two passes of 3)."""
     x, arrays, _ = inputs((1, 5, 5, 24))
     params = na_block_params(arrays, "cpu")
-    weights = _kernel_weights(params, 24, "cpu")
-    cp = padded_channels(24)
-    assert cp == 32 and weights["w_qkv"].shape == (32, 96)
-    assert weights["w_qkv"].dtype == torch.bfloat16
     h = torch.from_numpy(x).reshape(-1, 24)
-    h_pad = torch.nn.functional.pad(h, (0, 8)).to(torch.bfloat16).float()
-    got = h_pad @ weights["w_qkv"].float() + weights["b_qkv"]
     want = (
         h.to(torch.bfloat16).float() @ params["w_qkv"].to(torch.bfloat16).float()
         + params["b_qkv"]
     )
-    for g in range(3):
-        torch.testing.assert_close(
-            got[:, g * 32 : g * 32 + 24], want[:, g * 24 : (g + 1) * 24]
-        )
-        assert not got[:, g * 32 + 24 : (g + 1) * 32].any()
-    proj = weights["w_proj"].float()
-    assert torch.equal(proj[:24, :24], params["w_proj"].to(torch.bfloat16).float())
-    assert not proj[24:].any() and not proj[:, 24:].any()
+    h_pad = torch.nn.functional.pad(h, (0, 8)).to(torch.bfloat16).float()
+    for heads, passes in ((3, 1), (6, 2)):
+        d = 24 // heads
+        weights = prepare_weights(params, heads, "cpu")
+        assert padded_channels(24) == 32
+        assert head_layout(24, heads) == (16, 3, passes)
+        assert weights["w_qkv"].shape == (passes, 1, 32, 200)
+        assert weights["w_qkv"].dtype == torch.bfloat16
+        assert not weights["w_qkv"][..., 144:].any()
+        assert weights["b_qkv"].shape == (passes, 144)
+        w_qkv, proj = unpack_weights(weights, 24, heads)
+        for ps in range(passes):
+            got = h_pad @ w_qkv[ps].float() + weights["b_qkv"][ps]
+            for part in range(3):
+                for g in range(3):
+                    n = ps * 3 + g
+                    col = part * 48 + g * 16
+                    torch.testing.assert_close(
+                        got[:, col : col + d],
+                        want[:, part * 24 + n * d : part * 24 + (n + 1) * d],
+                    )
+                    assert not got[:, col + d : col + 16].any()
+        assert weights["w_proj"].shape == (1, heads * 16, 264)
+        assert not weights["w_proj"][..., 24:].any()
+        proj = proj.float()
+        assert proj.shape == (heads * 16, 32)
+        w_proj = params["w_proj"].to(torch.bfloat16).float()
+        for n in range(heads):
+            assert torch.equal(
+                proj[n * 16 : n * 16 + d, :24], w_proj[n * d : (n + 1) * d]
+            )
+            assert not proj[n * 16 + d : (n + 1) * 16].any()
+        assert not proj[:, 24:].any()
 
 
 def test_wrapper_and_block_refuse_bad_input():
