@@ -103,6 +103,23 @@ on the first phase that fails:
     ScenePredictor on the 420x420 scene: finite, 12 na2d_fwd launches.
     Host-timed train chips/s of one epoch beside the bare step's, and the
     resumed run's device idle share.
+17. fit_augment (the CLI default, host augmentation at augment_prob 0.5):
+    the same 20 chips, 2 epochs then a resume to 3; every loss finite;
+    launches as in fit (augmentation is host work and launches nothing);
+    ``last`` and ``best`` written. Host-timed train chips/s of one epoch
+    beside fit's at 0.0; the loader alone over the 2-epoch run's loading
+    with augmentation off and on, in turns; the crop parcels of the
+    chips; each augmenter's median host ms a sample over 21 samples on a
+    100x100, T=12, 3-band chip with a field layout.
+18. predict_raster (the predict half of the CLI default from files): the
+    fit phase's ``best`` checkpoint; the seeded 420x420 int16 scene ->
+    ``create_predict_dataset`` (window 100, padding 20: 25 chips) ->
+    ``ChipDataset`` -> ``predict_windows`` and ``predict_to_raster`` at
+    bf16, batch 8: 12 na2d_fwd launches each and nothing else; the TIFF
+    read back band by band equal to the ``.npz`` sidecar's raster, its
+    bounds, cell size and CRS and the sidecar's transform as written; the
+    chip-file raster at fp32 within 1e-4 max-abs of ``predict_scene`` on
+    the same float scene. Windows/s and the raster write's seconds.
 
 Kernel times (``ms``, ``library_ms``) are device times: ``device_ms``
 queues 20 calls behind a sleep kernel so the card runs them back to back
@@ -110,8 +127,8 @@ and the host's dispatch is hidden; ``call_ms`` (NA kernels) and
 ``plain_ms`` time single calls with CUDA events (``median_ms``), host
 dispatch included where the card is faster than the host.
 
-Kernel launch counts are zeroed just before each path (8, 10, 12, 13, 16)
-and read just after. Then the kernels line (seven kernels), and last
+Kernel launch counts are zeroed just before each path (8, 10, 12, 13,
+16-18) and read just after. Then the kernels line (seven kernels), and last
 ``{"ok": true, "device": {...}}``. TF32 is off for matmuls and
 convolutions throughout, so fp32 comparisons hold fp32 arithmetic.
 """
@@ -120,9 +137,11 @@ import json
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
 import typing as T
 from concurrent.futures import ThreadPoolExecutor
+from pathlib import Path
 
 import numpy as np
 import torch
@@ -1778,10 +1797,11 @@ def write_fit_chips(root) -> None:
         batch.to_file(root / "processed" / batch.batch_id[0])
 
 
-def fit_params(root, ckpt, norm, epochs: int):
+def fit_params(root, ckpt, norm, epochs: int, augment_prob: float = 0.0):
     """The CLI's training defaults (hidden 64, natten, dropout 0.2,
     dilations [1, 2], "16-mixed", AdamW + OneCycle peak 0.01, weight decay
-    1e-3, clip 1.0, batch 4, val_frac 0.2), host augmentation off."""
+    1e-3, clip 1.0, batch 4, val_frac 0.2), host augmentation at
+    ``augment_prob`` (the CLI's default is 0.5)."""
     from cultionet_tpu_torch.config import CultionetParams
     from cultionet_tpu_torch.data.datasets import ChipDataset
 
@@ -1801,7 +1821,7 @@ def fit_params(root, ckpt, norm, epochs: int):
         learning_rate=0.01,
         weight_decay=1e-3,
         gradient_clip_val=1.0,
-        augment_prob=0.0,
+        augment_prob=augment_prob,
         epochs=epochs,
     )
 
@@ -1835,123 +1855,140 @@ def require_states_equal(got, want) -> None:
             )
 
 
-def phase_fit(train_steps_per_s: float) -> dict:
+def loader_s(root, norm, augment_prob: float, epochs: int = 1) -> float:
+    """Host seconds for the loader alone to deliver ``epochs`` epochs of
+    the train split to the card (4 batches of 4 each), at
+    ``augment_prob``: the loading, augmentation draws and batch order of
+    the first ``epochs`` epochs of ``fit`` on the same chips."""
+    from cultionet_tpu_torch.data.datasets import ChipDataset
+    from cultionet_tpu_torch.data.loader import ChipLoader
+
+    train_ds, _ = ChipDataset(root, norm_values=norm).split_train_val(0.2)
+    train_ds.augment_prob = augment_prob
+    loader = ChipLoader(
+        train_ds, batch_size=4, shuffle=True, drop_last=True, device="cuda"
+    )
+    start = time.perf_counter()
+    loaded = sum(len(list(loader)) for _ in range(epochs))
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - start
+    require(loaded == 4 * epochs, f"loader gave {loaded} batches")
+    return seconds
+
+
+def phase_fit(train_steps_per_s: float, workdir) -> dict:
     """The fit loop from chip files: normalization statistics, 2 epochs
     with checkpoints, a resume to 3 epochs, then the best checkpoint
-    through ScenePredictor."""
+    through ScenePredictor. The chips and checkpoints stay in ``workdir``
+    for the phases after it."""
     import copy
-    import tempfile
-    from pathlib import Path
 
     from torch.profiler import ProfilerActivity, profile
 
     from cultionet_tpu_torch.data.datasets import ChipDataset
-    from cultionet_tpu_torch.data.loader import ChipLoader
     from cultionet_tpu_torch.model import fit, load_model
     from cultionet_tpu_torch.predict import ScenePredictor
     from cultionet_tpu_torch.train.checkpoint import Checkpointer
     from cultionet_tpu_torch.utils.normalize import NormValues
 
-    with tempfile.TemporaryDirectory() as tmp:
-        root, ckpt = Path(tmp) / "chips", Path(tmp) / "ckpt"
-        start = time.perf_counter()
-        write_fit_chips(root)
-        norm = NormValues.from_dataset(
-            ChipDataset(root), {"max_crop_class": 1, "edge_class": 2}
-        )
-        setup_s = time.perf_counter() - start
+    root, ckpt = workdir / "chips", workdir / "ckpt"
+    start = time.perf_counter()
+    write_fit_chips(root)
+    norm = NormValues.from_dataset(
+        ChipDataset(root), {"max_crop_class": 1, "edge_class": 2}
+    )
+    setup_s = time.perf_counter() - start
 
-        zero_launches()
-        start = time.perf_counter()
-        first = fit(fit_params(root, ckpt, norm, epochs=2))
+    zero_launches()
+    start = time.perf_counter()
+    first = fit(fit_params(root, ckpt, norm, epochs=2))
+    torch.cuda.synchronize()
+    first_s = time.perf_counter() - start
+    launches = read_launches()
+    steps_per_epoch, val_batches = 4, 1
+    require(
+        launches == fit_launches(2 * steps_per_epoch, 2 * val_batches),
+        f"fit (2 epochs) launched {launches}",
+    )
+    store = ckpt / "last_store"
+    for which in ("last", "best"):
+        require((store / which / "model.pt").exists(), f"fit: no {which}")
+    require(len(first.history) == 2, f"fit: history {first.history}")
+    require(first.state.step == 8, f"fit: step {first.state.step}")
+    template = copy.deepcopy(first.state.model)
+    with torch.no_grad():
+        for p in template.parameters():
+            p.zero_()
+    restored = Checkpointer(store).restore(
+        type(first.state)(
+            model=template,
+            optimizer=first.state.optimizer.spec.init(template.parameters()),
+        ),
+        "last",
+    )
+    require_states_equal(restored, first.state)
+    del first, restored, template
+
+    zero_launches()
+    start = time.perf_counter()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        resumed = fit(fit_params(root, ckpt, norm, epochs=3))
         torch.cuda.synchronize()
-        first_s = time.perf_counter() - start
-        launches = read_launches()
-        steps_per_epoch, val_batches = 4, 1
-        require(
-            launches == fit_launches(2 * steps_per_epoch, 2 * val_batches),
-            f"fit (2 epochs) launched {launches}",
-        )
-        store = ckpt / "last_store"
-        for which in ("last", "best"):
-            require((store / which / "model.pt").exists(), f"fit: no {which}")
-        require(len(first.history) == 2, f"fit: history {first.history}")
-        require(first.state.step == 8, f"fit: step {first.state.step}")
-        template = copy.deepcopy(first.state.model)
-        with torch.no_grad():
-            for p in template.parameters():
-                p.zero_()
-        restored = Checkpointer(store).restore(
-            type(first.state)(
-                model=template,
-                optimizer=first.state.optimizer.spec.init(template.parameters()),
-            ),
-            "last",
-        )
-        require_states_equal(restored, first.state)
-        del first, restored, template
+    resumed_s = time.perf_counter() - start
+    resumed_launches = read_launches()
+    _, device_us, top = device_time_by_kernel(prof, 8)
+    require(
+        resumed_launches == fit_launches(steps_per_epoch, val_batches),
+        f"fit (resumed) launched {resumed_launches}",
+    )
+    require(
+        [r["epoch"] for r in resumed.history] == [2],
+        f"fit: resumed history {resumed.history}",
+    )
+    require(resumed.state.step == 12, f"fit: step {resumed.state.step}")
+    # Where an epoch's host time goes: the loader alone over the train
+    # split, and one checkpoint save.
+    loader_epoch_s = loader_s(root, norm, augment_prob=0.0)
+    start = time.perf_counter()
+    Checkpointer(workdir / "timing").save_last(resumed.state, 0)
+    save_s = time.perf_counter() - start
+    rows = (ckpt / "history.csv").read_text().splitlines()
+    require(len(rows) == 1 + 3, f"fit: history.csv has {len(rows)} lines")
+    history = [
+        {k: float(v) for k, v in zip(rows[0].split(","), r.split(","))}
+        for r in rows[1:]
+    ]
+    for row in history:
+        for key in ("loss", "val_loss", "val_score"):
+            require(np.isfinite(row[key]), f"fit: {key} {row}")
+    del resumed
 
-        zero_launches()
-        start = time.perf_counter()
-        with profile(activities=[ProfilerActivity.CUDA]) as prof:
-            resumed = fit(fit_params(root, ckpt, norm, epochs=3))
-            torch.cuda.synchronize()
-        resumed_s = time.perf_counter() - start
-        resumed_launches = read_launches()
-        _, device_us, top = device_time_by_kernel(prof, 8)
-        require(
-            resumed_launches == fit_launches(steps_per_epoch, val_batches),
-            f"fit (resumed) launched {resumed_launches}",
-        )
-        require(
-            [r["epoch"] for r in resumed.history] == [2],
-            f"fit: resumed history {resumed.history}",
-        )
-        require(resumed.state.step == 12, f"fit: step {resumed.state.step}")
-        # Where an epoch's host time goes: the loader alone over the train
-        # split, and one checkpoint save.
-        train_ds, _ = ChipDataset(root, norm_values=norm).split_train_val(0.2)
-        loader = ChipLoader(
-            train_ds, batch_size=4, shuffle=True, drop_last=True,
-            device="cuda",
-        )
-        start = time.perf_counter()
-        loaded = len(list(loader))
-        torch.cuda.synchronize()
-        loader_s = time.perf_counter() - start
-        require(loaded == steps_per_epoch, f"fit: loader gave {loaded}")
-        start = time.perf_counter()
-        Checkpointer(Path(tmp) / "timing").save_last(resumed.state, 0)
-        save_s = time.perf_counter() - start
-        rows = (ckpt / "history.csv").read_text().splitlines()
-        require(len(rows) == 1 + 3, f"fit: history.csv has {len(rows)} lines")
-        history = [
-            {k: float(v) for k, v in zip(rows[0].split(","), r.split(","))}
-            for r in rows[1:]
-        ]
-        for row in history:
-            for key in ("loss", "val_loss", "val_score"):
-                require(np.isfinite(row[key]), f"fit: {key} {row}")
-        del resumed
-
-        _, model = load_model(store, "best")
-        scene = (
-            np.random.default_rng(0).random((12, 420, 420, 3)) * 10000.0
-        ).astype("int16")
-        predictor = ScenePredictor(model, batch_size=8, device="cuda")
-        zero_launches()
-        raster, _ = predictor.predict_scene(scene, window_size=100, padding=20)
-        predict_launches = read_launches()
-        want = {name: 0 for name in predict_launches}
-        want["na2d_fwd"] = 12
-        require(predict_launches == want, f"fit predict {predict_launches}")
-        require(
-            raster.shape == (420, 420, 3) and bool(np.isfinite(raster).all()),
-            "fit: predicted raster not finite",
-        )
-        del model, predictor
+    _, model = load_model(store, "best")
+    scene = (
+        np.random.default_rng(0).random((12, 420, 420, 3)) * 10000.0
+    ).astype("int16")
+    predictor = ScenePredictor(model, batch_size=8, device="cuda")
+    zero_launches()
+    raster, _ = predictor.predict_scene(scene, window_size=100, padding=20)
+    predict_launches = read_launches()
+    want = {name: 0 for name in predict_launches}
+    want["na2d_fwd"] = 12
+    require(predict_launches == want, f"fit predict {predict_launches}")
+    require(
+        raster.shape == (420, 420, 3) and bool(np.isfinite(raster).all()),
+        "fit: predicted raster not finite",
+    )
+    del model, predictor
 
     epoch_s = first_s - resumed_s  # one epoch; set-up cancels
+    result = {
+        "launches": launches,
+        "root": root,
+        "norm": norm,
+        "store": store,
+        "epoch_train_chips_per_s": 4 * steps_per_epoch / epoch_s,
+        "fit_2_epochs_s": first_s,
+    }
     emit(
         {
             "phase": "fit",
@@ -1964,7 +2001,7 @@ def phase_fit(train_steps_per_s: float) -> dict:
             "fit_resumed_1_epoch_s": resumed_s,
             "epoch_s": epoch_s,
             "epoch_train_chips_per_s": 4 * steps_per_epoch / epoch_s,
-            "loader_epoch_s": loader_s,
+            "loader_epoch_s": loader_epoch_s,
             "checkpoint_save_s": save_s,
             "bare_step_chips_per_s": 4 * train_steps_per_s,
             "resumed_run_device_ms": device_us / 1e3,
@@ -1976,7 +2013,226 @@ def phase_fit(train_steps_per_s: float) -> dict:
             "predict_launches": predict_launches,
         }
     )
-    return launches
+    return result
+
+
+def field_chip(size: int = 100, field: int = 20):
+    """A seeded 100 x 100, T = 12, 3-band chip with a field layout: a grid
+    of 20-px fields, each ringed by a 1-px edge (class 2); about 70% of
+    them crop (class 1), the rest background."""
+    from cultionet_tpu_torch.data.batch import Batch
+
+    rng = np.random.default_rng(5)
+    y = np.zeros((size, size), dtype=np.int32)
+    for r in range(0, size, field):
+        for c in range(0, size, field):
+            y[r : r + field, c : c + field] = 2
+            if rng.random() < 0.7:
+                y[r + 1 : r + field - 1, c + 1 : c + field - 1] = 1
+            else:
+                y[r + 1 : r + field - 1, c + 1 : c + field - 1] = 0
+    return Batch(
+        x=torch.from_numpy(rng.random((1, 12, size, size, 3), dtype=np.float32)),
+        y=torch.from_numpy(y[None]),
+        bdist=torch.from_numpy(rng.random((1, size, size), dtype=np.float32)),
+    )
+
+
+def augmenter_ms(batch, samples: int = 21) -> dict:
+    """Median host ms a sample of each of the 14 augmenters (all but
+    "none") on ``batch``, over ``samples`` calls, each with its own draws."""
+    from cultionet_tpu_torch.augment import AUGMENTATION_NAMES, Augmenters
+
+    times = {}
+    for name in AUGMENTATION_NAMES:
+        if name == "none":
+            continue
+        rng = np.random.default_rng(0)
+        calls = []
+        for _ in range(samples):
+            start = time.perf_counter()
+            out = Augmenters([name], rng=rng)(batch)
+            calls.append((time.perf_counter() - start) * 1e3)
+            require(
+                out.x.shape == batch.x.shape and bool(torch.isfinite(out.x).all()),
+                f"augmenter {name}: output {out.x.shape}",
+            )
+        times[name] = statistics.median(calls)
+    return times
+
+
+def phase_fit_augment(fit_result: dict) -> None:
+    """The CLI default, host augmentation at augment_prob 0.5, over the fit
+    phase's 20 chips: 2 epochs with checkpoints, then a resume to 3 (one
+    epoch's time is the difference); the loader alone over the first two
+    epochs' loading with augmentation off and on; each augmenter's host
+    time on a field-layout chip."""
+    from cultionet_tpu_torch.augment import label_segments
+    from cultionet_tpu_torch.model import fit
+
+    root, norm = fit_result["root"], fit_result["norm"]
+    ckpt = root.parent / "ckpt_augment"
+    runs = {}
+    for epochs, steps, val_batches in ((2, 8, 2), (3, 4, 1)):
+        zero_launches()
+        start = time.perf_counter()
+        result = fit(fit_params(root, ckpt, norm, epochs, augment_prob=0.5))
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - start
+        launches = read_launches()
+        require(
+            launches == fit_launches(steps, val_batches),
+            f"fit_augment ({epochs} epochs) launched {launches}",
+        )
+        for row in result.history:
+            for key in ("loss", "val_loss", "val_score"):
+                require(np.isfinite(row[key]), f"fit_augment: {key} {row}")
+        runs[epochs] = (seconds, launches, result.history)
+        del result
+    for which in ("last", "best"):
+        require(
+            (ckpt / "last_store" / which / "model.pt").exists(),
+            f"fit_augment: no {which}",
+        )
+    epoch_s = runs[2][0] - runs[3][0]
+
+    # The loader alone over the 2-epoch runs' loading, augmentation off
+    # and on, in turns.
+    loader = {0.0: [], 0.5: []}
+    for prob in (0.0, 0.5, 0.5, 0.0):
+        loader[prob].append(loader_s(root, norm, prob, epochs=2))
+    parcels = []
+    for path in sorted((root / "processed").glob("*.npz")):
+        with np.load(path) as data:
+            parcels.append(int(label_segments(data["y"][0]).max()))
+    chip = field_chip()
+    emit(
+        {
+            "phase": "fit_augment",
+            "chips": [FIT_CHIPS, 12, 100, 100, 3],
+            "augment_prob": 0.5,
+            "precision": "16-mixed",
+            "fit_2_epochs_s": runs[2][0],
+            "fit_resumed_1_epoch_s": runs[3][0],
+            "epoch_s": epoch_s,
+            "epoch_train_chips_per_s": 16 / epoch_s,
+            "epoch_train_chips_per_s_augment_0": fit_result[
+                "epoch_train_chips_per_s"
+            ],
+            "fit_2_epochs_s_augment_0": fit_result["fit_2_epochs_s"],
+            "loader_2_epochs_s_augment_0": loader[0.0],
+            "loader_2_epochs_s_augment_0.5": loader[0.5],
+            "fit_chip_parcels": [min(parcels), max(parcels)],
+            "field_chip_parcels": int(label_segments(chip.y[0].numpy()).max()),
+            "augmenter_ms_field_chip": augmenter_ms(chip),
+            "history": runs[2][2] + runs[3][2],
+            "launches": runs[2][1],
+            "resumed_launches": runs[3][1],
+        }
+    )
+
+
+def phase_predict_raster(fit_result: dict) -> None:
+    """Predict over chip files to a GeoTIFF with the fit phase's ``best``
+    checkpoint: the seeded 420 x 420 int16 scene -> create_predict_dataset
+    (window 100, padding 20: 25 chips) -> ChipDataset -> predict_to_raster
+    at bf16, batch 8; the raster read back against its sidecar; the
+    chip-file raster at fp32 against predict_scene on the same scene."""
+    from cultionet_tpu_torch.data.create import (
+        create_predict_dataset,
+        prepare_image_time_series,
+    )
+    from cultionet_tpu_torch.data.datasets import ChipDataset
+    from cultionet_tpu_torch.data.tiny_tiff import read_tiff
+    from cultionet_tpu_torch.model import load_model
+    from cultionet_tpu_torch.predict import ScenePredictor
+
+    workdir = fit_result["root"].parent / "predict"
+    scene = (
+        np.random.default_rng(0).random((12, 420, 420, 3)) * 10000.0
+    ).astype("int16")
+    bounds = (500000.0, 4000000.0, 504200.0, 4004200.0)  # 10 m cells
+    start = time.perf_counter()
+    paths = create_predict_dataset(
+        scene, region="smoke", process_path=workdir / "processed",
+        window_size=100, padding=20, bounds=bounds,
+    )
+    create_s = time.perf_counter() - start
+    require(len(paths) == 25, f"predict_raster: {len(paths)} chips")
+    dataset = ChipDataset(workdir)
+
+    _, model = load_model(fit_result["store"], "best")
+    predictor = ScenePredictor(model, batch_size=8, precision="bf16", device="cuda")
+    predictor.predict_windows(dataset)  # warm-up
+    zero_launches()
+    start = time.perf_counter()
+    raster, (h, w) = predictor.predict_windows(dataset)
+    windows_s = time.perf_counter() - start
+    windows_launches = read_launches()
+    require(raster.shape == (420, 420, 3), f"predict_raster: {raster.shape}")
+    require(bool(np.isfinite(raster).all()), "predict_raster: not finite")
+
+    zero_launches()
+    start = time.perf_counter()
+    out = predictor.predict_to_raster(
+        dataset, workdir / "out" / "smoke.tif", crs="EPSG:32633"
+    )
+    to_raster_s = time.perf_counter() - start
+    launches = read_launches()
+    want = {name: 0 for name in launches}
+    want["na2d_fwd"] = 12
+    for got in (windows_launches, launches):
+        require(got == want, f"predict_raster launched {got}, want {want}")
+
+    bands, read_bounds, res, crs = read_tiff(out)
+    with np.load(out.with_suffix(".npz")) as sidecar:
+        packed = sidecar["raster"]
+        side_bounds = tuple(sidecar["bounds"])
+        transform = tuple(sidecar["transform"])
+        side_crs = str(sidecar["crs"])
+    require(bands.shape == (3, 420, 420), f"predict_raster tiff {bands.shape}")
+    for band in range(3):
+        require(
+            np.array_equal(bands[band], packed[band]),
+            f"predict_raster: band {band} differs from the sidecar",
+        )
+    want_bounds = tuple(float(np.float32(v)) for v in bounds)
+    require(
+        side_bounds == want_bounds
+        and np.allclose(read_bounds, want_bounds, rtol=0, atol=1e-6),
+        f"predict_raster bounds {read_bounds} / {side_bounds}",
+    )
+    left, bottom, right, top = want_bounds
+    want_transform = ((right - left) / 420, 0.0, left, 0.0, -(top - bottom) / 420, top)
+    require(transform == want_transform, f"predict_raster transform {transform}")
+    require(res == want_transform[0], f"predict_raster cell size {res}")
+    require(crs == side_crs == "EPSG:32633", f"predict_raster crs {crs}")
+
+    # fp32: the chip-file path against the in-memory path, no NormValues.
+    predictor = ScenePredictor(model, batch_size=8, precision="fp32", device="cuda")
+    from_files, _ = predictor.predict_windows(dataset)
+    in_memory, _ = predictor.predict_scene(
+        prepare_image_time_series(scene), window_size=100, padding=20
+    )
+    err = float(np.abs(from_files - in_memory).max())
+    require(err <= 1e-4, f"predict_raster: files vs scene max-abs {err}")
+    emit(
+        {
+            "phase": "predict_raster",
+            "scene": [12, 420, 420, 3],
+            "windows": 25,
+            "precision": "bf16",
+            "create_predict_dataset_s": create_s,
+            "predict_windows_s": windows_s,
+            "windows_per_s": 25 / windows_s,
+            "predict_to_raster_s": to_raster_s,
+            "raster_write_s": to_raster_s - windows_s,
+            "files_vs_scene_fp32_max_abs": err,
+            "tiff_bytes": out.stat().st_size,
+            "launches": launches,
+        }
+    )
+    del model, predictor
 
 
 def kernel_entry(name, source, replaces, launches, summary) -> dict:
@@ -2038,7 +2294,10 @@ def main() -> int:
     phase_train_profile(state, batch, steps_per_s, "transformer")
     del state
     torch.cuda.empty_cache()
-    phase_fit(conv_steps_per_s)
+    with tempfile.TemporaryDirectory() as tmp:
+        fit_result = phase_fit(conv_steps_per_s, Path(tmp))
+        phase_fit_augment(fit_result)
+        phase_predict_raster(fit_result)
 
     fwd_src = "cultionet_tpu_torch/ops/csrc/na2d_fwd.cu"
     bwd_src = "cultionet_tpu_torch/ops/csrc/na2d_bwd.cu"

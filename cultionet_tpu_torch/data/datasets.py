@@ -5,12 +5,14 @@ A file-list dataset over ``root/processed/data*.npz`` chips: 1/10000
 scaling and clipping, the optional Dynamic World log transform, z-score
 normalization, per-chip lat/lon centroids, a random or spatially balanced
 train/validation split, spatial k-fold iteration and a parallel dimension
-audit. All host work is numpy; a chip leaves as a ``Batch`` of CPU
-tensors.
+audit, and host augmentation: with probability ``augment_prob`` a
+labelled chip goes through one augmenter drawn from ``augmentations``
+(``augment/``), from the dataset's numpy generator in the JAX package's
+order. All host work runs on CPU numpy arrays and tensors; a chip leaves as
+a ``Batch`` of CPU tensors.
 
-Not ported (each raises ``NotImplementedError``): host augmentation
-(``augment_prob > 0``), user partition files (``split_by_partition``) and
-reference joblib ``.pt`` chips.
+Not ported (each raises ``NotImplementedError``): user partition files
+(``split_by_partition``) and reference joblib ``.pt`` chips.
 """
 
 import typing as T
@@ -20,6 +22,7 @@ from pathlib import Path
 import numpy as np
 import torch
 
+from ..augment import AUGMENTATION_NAMES, Augmenters
 from ..errors import TensorShapeError
 from .batch import Batch
 from .constant import SCALE_FACTOR
@@ -35,6 +38,7 @@ class ChipDataset:
         pattern: str = "data*",
         norm_values=None,
         augment_prob: float = 0.0,
+        augmentations: T.Optional[T.Sequence[str]] = None,
         log_transform: bool = False,
         random_seed: int = 42,
         files: T.Optional[T.Sequence[Path]] = None,
@@ -47,6 +51,9 @@ class ChipDataset:
         self.log_transform = log_transform
         self.random_seed = random_seed
         self.rng = np.random.default_rng(random_seed)
+        if augmentations is None:
+            augmentations = [n for n in AUGMENTATION_NAMES if n != "none"]
+        self.augmentations = list(augmentations)
         if files is not None:
             self.files = [Path(f) for f in files]
         else:
@@ -73,6 +80,7 @@ class ChipDataset:
             pattern=self.pattern,
             norm_values=self.norm_values,
             augment_prob=self.augment_prob,
+            augmentations=self.augmentations,
             log_transform=self.log_transform,
             random_seed=self.random_seed,
             files=files,
@@ -101,17 +109,23 @@ class ChipDataset:
         return np.clip(arr.astype(np.float32), clip_min, clip_max)
 
     def load_file(self, path: Path) -> Batch:
+        """The chip at ``path``; under ``preload`` a copy of the cached
+        chip's arrays, so that nothing downstream can change the cache."""
         if not self.preload:
             return Batch.from_file(path)
         cached = self._cache.get(path)
         if cached is None:
             cached = Batch.from_file(path)
             self._cache[path] = cached
-        return cached
+        return cached.replace(
+            **{name: value.clone() for name, value in cached.tensors().items()}
+        )
 
     def __getitem__(self, idx: int) -> Batch:
         batch = self.load_file(self.files[int(idx)])
-        x = self._scale(batch.x.numpy(), 1e-9, 1.0)
+        batch = batch.replace(
+            x=torch.from_numpy(self._scale(batch.x.numpy(), 1e-9, 1.0))
+        )
         if batch.bdist is not None:
             batch = batch.replace(
                 bdist=torch.from_numpy(
@@ -119,14 +133,14 @@ class ChipDataset:
                 )
             )
         if batch.y is not None and self.augment_prob > 0:
-            raise NotImplementedError(
-                "host augmentation (augment_prob > 0) is not ported yet"
-            )
+            if self.rng.random() > (1.0 - self.augment_prob):
+                name = str(self.rng.choice(self.augmentations))
+                batch = Augmenters([name], rng=self.rng)(batch)
         if self.log_transform:
             # Dynamic World log transform.
+            x = batch.x.numpy()
             x = np.maximum(np.log(x * np.float32(50.0) + np.float32(1.0)), 1e-9)
-            x = x.astype(np.float32)
-        batch = batch.replace(x=torch.from_numpy(x))
+            batch = batch.replace(x=torch.from_numpy(x.astype(np.float32)))
         if self.norm_values is not None:
             batch = self.norm_values(batch)
         return batch.with_centroids()

@@ -1,17 +1,23 @@
-"""Public orchestration API: ``fit`` and ``load_model`` (port of the part
-of cultionet_tpu/model.py that trains and restores; ``fit_transfer`` and
-``predict`` over chip datasets are not ported yet)."""
+"""Public orchestration API: ``fit``, ``load_model`` and ``predict`` over
+a chip dataset (port of cultionet_tpu/model.py; ``fit_transfer`` is not
+ported yet)."""
 
 import typing as T
 from pathlib import Path
 
+import numpy as np
+import torch
+
 from .config import CultionetParams
+from .data.batch import Batch
+from .data.loader import ChipLoader
 from .models import CultioNet
+from .predict import BAND_NAMES
 from .train.checkpoint import Checkpointer
 from .train.fit import FitResult, model_from_kwargs
 from .train.fit import fit as _fit
 from .train.optim import build_optimizer
-from .train.step import TrainState, create_train_state
+from .train.step import TrainState, create_train_state, make_predict_step
 from .utils.device import resolve_device
 
 # Checkpoint hyperparams that are not model arguments.
@@ -54,3 +60,40 @@ def load_model(
     )
     state = ckpt.restore(template, which, with_opt_state=False)
     return state, state.model.eval()
+
+
+def predict(
+    model: torch.nn.Module,
+    dataset,
+    batch_size: int = 4,
+    precision: str = "bf16",
+    writer: T.Optional[T.Callable[[Batch, dict], None]] = None,
+    device="cuda",
+) -> T.List[T.Dict[str, np.ndarray]]:
+    """Run ``model`` over a (predict) chip dataset in file order on
+    ``device`` (fp32 on the CPU, as the JAX package predicts off the TPU).
+
+    Each batch's outputs (distance, edge, crop) come back as host numpy
+    arrays. ``writer(batch, outputs)`` is called per batch where given
+    (a raster writer, say); otherwise the outputs are returned.
+    """
+    device = resolve_device(device)
+    if device.type != "cuda":
+        precision = "fp32"
+    predict_step = make_predict_step(model, precision, device)
+    loader = ChipLoader(
+        dataset, batch_size=batch_size, shuffle=False, device=device
+    )
+    results = []
+    for batch in loader:
+        outputs = predict_step(batch.x)
+        host = {name: outputs[name].cpu().numpy() for name in BAND_NAMES}
+        if writer is not None:
+            writer(batch, host)
+        else:
+            results.append(host)
+    return results
+
+
+# The reference's API name.
+predict_lightning = predict

@@ -1,27 +1,36 @@
 """Large-scene sliding-window inference with on-device blending (port of
-cultionet_tpu/predict.py, the per-batch path of ``predict_scene``).
+cultionet_tpu/predict.py: the per-batch path of ``predict_scene``,
+``predict_windows`` and ``predict_to_raster``).
 
 Each window carries a taper weight map (1 in the interior, a raised-cosine
 ramp over the overlap); windows accumulate into scene-level weighted sums on
-the device, and the raster is the weight-normalized sum.
+the device, and the raster is the weight-normalized sum. The windows come
+from an in-memory scene (``predict_scene``) or from the window chips of
+``data/create.py::create_predict_dataset`` (``predict_windows``);
+``predict_to_raster`` writes the result as a 3-band uint16 GeoTIFF.
 
 Not yet ported: the JAX whole-scene ``lax.scan`` (a TPU dispatch tactic),
-``predict_windows`` / ``predict_to_raster`` over chip files, GeoTIFF
-output, lat/lon centroids and multi-device predict.
+lat/lon centroids for the model (the port builds no ``use_latlon`` model)
+and multi-device predict.
 """
 
 import math
 import typing as T
+from pathlib import Path
 
 import numpy as np
 import torch
 from torch import nn
 
+from .data.batch import Batch
+from .data.constant import SCALE_FACTOR
 from .data.create import (
     _slice_window,
     iter_window_jobs,
     prepare_image_time_series,
 )
+from .data.datasets import ChipDataset
+from .data.loader import ChipLoader
 from .enums import InferenceNames
 from .train.step import make_predict_step
 from .utils.device import resolve_device
@@ -94,6 +103,54 @@ class ScenePredictor:
         self.precision = precision
         self.batch_size = batch_size
         self.predict_step = make_predict_step(model, precision, self.device)
+        self._scene_bounds: T.Optional[T.Tuple[float, ...]] = None
+
+    def predict_windows(
+        self, dataset: ChipDataset
+    ) -> T.Tuple[np.ndarray, T.Tuple[int, int]]:
+        """Predict every window chip of ``dataset`` and blend them on the
+        device; returns the stitched (H, W, 3) float32 raster in [0, 1]
+        and (H, W).
+
+        The scene's extent, the window size and the scene bounds come from
+        the chips' headers (``Batch.read_meta``: the x arrays are not
+        decompressed); the batches come from a ``ChipLoader`` in file
+        order that delivers them to the predictor's device.
+        """
+        scene_h = scene_w = window_size = 0
+        self._scene_bounds = None
+        for path in dataset.files:
+            meta = Batch.read_meta(path)
+            height = int(meta.window_height[0])
+            window_size = max(window_size, height)
+            scene_h = max(scene_h, int(meta.window_row_off[0]) + height)
+            scene_w = max(
+                scene_w,
+                int(meta.window_col_off[0]) + int(meta.window_width[0]),
+            )
+            if self._scene_bounds is None and meta.left is not None:
+                self._scene_bounds = tuple(
+                    float(getattr(meta, side)[0])
+                    for side in ("left", "bottom", "right", "top")
+                )
+        chip_size = dataset.load_file(dataset.files[0]).x.shape[2]
+        padding = (chip_size - window_size) // 2
+
+        loader = ChipLoader(
+            dataset, batch_size=self.batch_size, shuffle=False,
+            device=self.device,
+        )
+        batches = (
+            (
+                batch.x,
+                batch.window_row_off.tolist(),
+                batch.window_col_off.tolist(),
+            )
+            for batch in loader
+        )
+        return self._blend_windows(
+            batches, scene_h, scene_w, window_size, padding
+        )
 
     def predict_scene(
         self,
@@ -151,7 +208,9 @@ class ScenePredictor:
 
     def _blend_windows(
         self,
-        batches: T.Iterable[T.Tuple[np.ndarray, T.List[int], T.List[int]]],
+        batches: T.Iterable[
+            T.Tuple[T.Union[np.ndarray, Tensor], T.List[int], T.List[int]]
+        ],
         scene_h: int,
         scene_w: int,
         window_size: int,
@@ -169,7 +228,7 @@ class ScenePredictor:
         scene_weight = torch.full((buf_h, buf_w, 1), 1e-8, device=self.device)
 
         for windows, row0s, col0s in batches:
-            outputs = self.predict_step(torch.from_numpy(windows))
+            outputs = self.predict_step(torch.as_tensor(windows))
             preds = torch.cat(
                 [outputs[name] for name in BAND_NAMES], dim=-1
             )  # (B, S, S, 3)
@@ -181,3 +240,64 @@ class ScenePredictor:
         # Scene pixel (r, c) lives at buffer (r + pad, c + pad).
         result = blended[pad : pad + scene_h, pad : pad + scene_w]
         return result.cpu().numpy(), (scene_h, scene_w)
+
+    def predict_to_raster(
+        self,
+        dataset: ChipDataset,
+        out_path: T.Union[str, Path],
+        reference_profile: T.Optional[dict] = None,
+        crs: T.Optional[str] = None,
+        reference_image: T.Optional[T.Union[str, Path]] = None,
+    ) -> Path:
+        """Predict the window chips of ``dataset`` and write the 3-band
+        (distance, edge, crop) uint16 x 10000 GeoTIFF at ``out_path``.
+
+        The affine transform comes from the scene bounds the chips carry,
+        or from ``reference_image``'s bounds (whose CRS also applies when
+        ``crs`` is None). With rasterio, ``reference_profile`` updates the
+        GTiff profile; without it the pure-Python codec writes the TIFF,
+        and a ``.npz`` sidecar holds ``raster``, ``band_names`` and, where
+        known, ``bounds``, ``transform`` (GDAL order) and ``crs``. The
+        write holds ``file_lock(out_path)``.
+        """
+        from .data.geotiff import has_rasterio, read_tiff_band, write_geotiff
+        from .utils.locks import file_lock
+
+        ref_bounds = None
+        if reference_image is not None:
+            _, ref_bounds, _, ref_crs = read_tiff_band(reference_image)
+            if crs is None:
+                crs = ref_crs
+
+        raster, (scene_h, scene_w) = self.predict_windows(dataset)
+        packed = np.clip(raster * SCALE_FACTOR, 0, 65535).astype("uint16")
+        packed = np.moveaxis(packed, -1, 0)  # (3, H, W)
+
+        bounds = ref_bounds if ref_bounds is not None else self._scene_bounds
+        extras = {}
+        if bounds is not None:
+            left, bottom, right, top = bounds
+            res_x = (right - left) / scene_w
+            res_y = (top - bottom) / scene_h
+            extras["bounds"] = np.asarray(bounds, dtype="float64")
+            extras["transform"] = np.asarray(
+                (res_x, 0.0, left, 0.0, -res_y, top), dtype="float64"
+            )
+        if crs is not None:
+            extras["crs"] = np.asarray(str(crs))
+
+        out_path = Path(out_path)
+        out_path.parent.mkdir(parents=True, exist_ok=True)
+        with file_lock(out_path):
+            write_geotiff(
+                out_path, packed, bounds=bounds, crs=crs,
+                profile=reference_profile,
+            )
+            if not has_rasterio():
+                np.savez_compressed(
+                    out_path.with_suffix(".npz"),
+                    raster=packed,
+                    band_names=np.asarray([str(b) for b in BAND_NAMES]),
+                    **extras,
+                )
+        return out_path

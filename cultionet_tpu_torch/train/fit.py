@@ -11,13 +11,15 @@ is one, and runs epochs of training then validation. It writes
 over the last epochs when asked (stochastic weight averaging, then the
 BatchNorm statistics re-estimated), and scores a test set into
 ``test.metrics``. Dropout draws only from a ``torch.Generator`` seeded with
-``random_seed``.
+``random_seed``. With ``augment_prob > 0`` the train split's chips go
+through host augmentation (``augment/``) in the loader's thread; the
+validation split never does.
 
 Not ported yet (each raises ``NotImplementedError`` in ``check_ported``):
-host augmentation (``augment_prob > 0``), in-step augmentation, the
-chipstore and device-resident paths (``use_chipstore``), more than one
-device or process, FSDP, ``auto_lr_find``, ``model_pruning``, user
-partition files, and the model options off the default path.
+in-step augmentation, the chipstore and device-resident paths
+(``use_chipstore``), more than one device or process, FSDP,
+``auto_lr_find``, ``model_pruning``, user partition files, and the model
+options off the default path.
 """
 
 import csv
@@ -71,7 +73,6 @@ def check_ported(params: CultionetParams) -> None:
     """Raise ``NotImplementedError`` for the options ``fit`` does not run
     yet, naming each."""
     cuts = {
-        "augment_prob > 0 (host augmentation)": params.augment_prob > 0,
         "device_augment / device_augment_noise (in-step augmentation)": (
             params.device_augment or params.device_augment_noise > 0
         ),

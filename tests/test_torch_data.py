@@ -30,13 +30,15 @@ FIELDS = (
 )
 
 
-def write_chips(root: Path, num: int = 10, seed: int = 100, packed=False):
+def write_chips(
+    root: Path, num: int = 10, seed: int = 100, packed=False, size=16
+):
     """``num`` seeded chips written by the JAX package (int16-packed x and
     bdist when ``packed``, as the chip creator writes them)."""
     rng = np.random.default_rng(seed)
     for _ in range(num):
         batch = jax_create_batch(
-            num_channels=3, num_time=4, height=16, width=16, rng=rng
+            num_channels=3, num_time=4, height=size, width=size, rng=rng
         )
         if packed:
             batch = batch.replace(
@@ -179,12 +181,43 @@ def test_kfold_and_sampler_match_jax(tmp_path):
 
 
 def test_loader_raises_the_dataset_error(tmp_path):
+    """The loader yields augmented batches from its thread (every chip
+    augmented at augment_prob 1 with fliplr: equal to the flipped chips),
+    and an error the dataset raises there reaches the caller."""
     root = write_chips(tmp_path, num=3)
-    ds = ChipDataset(root, augment_prob=0.5)
-    with pytest.raises(NotImplementedError, match="augment"):
+    plain = list(ChipLoader(ChipDataset(root), batch_size=2))
+    ds = ChipDataset(root, augment_prob=1.0, augmentations=["fliplr"])
+    flipped = list(ChipLoader(ds, batch_size=2))
+    assert [b.num_samples for b in flipped] == [2, 1]
+    for got, want in zip(flipped, plain):
+        assert torch.equal(got.x, want.x.flip(3))
+        assert torch.equal(got.y, want.y.flip(2))
+        assert torch.equal(got.bdist, want.bdist.flip(2))
+    ds.files.append(tmp_path / "processed" / "missing.npz")
+    with pytest.raises(FileNotFoundError, match="missing"):
         list(ChipLoader(ds, batch_size=2))
     with pytest.raises(NotImplementedError, match="partition"):
         ds.split_by_partition("parts.gpkg", "a")
+
+
+def test_preload_cache_survives_augmented_epochs(tmp_path):
+    """Two epochs of augmented loading under ``preload`` leave the cached
+    chips as they were read, and later chips come from the cache."""
+    # 20 x 20: Perlin noise needs sides divisible by 10.
+    root = write_chips(tmp_path, num=6, packed=True, size=20)
+    ds = ChipDataset(root, augment_prob=1.0, preload=True, random_seed=2)
+    for _ in range(2):
+        for batch in ChipLoader(ds, batch_size=2, shuffle=True):
+            assert batch.num_samples == 2
+    assert set(ds._cache) == set(ds.files)
+    # What load_file hands out is a copy: writing to it leaves the cache.
+    for name, value in ds.load_file(ds.files[0]).tensors().items():
+        value.zero_()
+    for path, cached in ds._cache.items():
+        fresh = Batch.from_file(path)
+        for name, value in fresh.tensors().items():
+            assert torch.equal(cached.tensors()[name], value), (path, name)
+        assert cached.x.dtype == torch.int16
 
 
 def test_norm_values_match_jax(tmp_path):

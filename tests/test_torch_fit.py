@@ -10,8 +10,9 @@ and no attention, so that the JAX fit compiles in about 30 s on a cold
 cache (with NA and dilations [1, 2] it took 45 s; the same loop agreed as
 closely). The CLI-default step with NA is held to the JAX step in
 ``test_torch_train.py``; ``test_torch_fit_resume.py`` runs the loop with
-NA and dropout. Also: every option the port does not run yet raises
-``NotImplementedError``.
+NA and dropout. Also: a fit at the CLI's default ``augment_prob`` 0.5
+ends with finite losses, and every option the port does not run yet
+raises ``NotImplementedError``.
 """
 
 import csv
@@ -147,10 +148,43 @@ def test_fit_matches_jax(chips, tmp_path):
     assert list(rows[0]) == list(jax_rows[0])
 
 
+def test_fit_with_host_augmentation(tmp_path):
+    """The CLI's default augment_prob 0.5 at hidden 8 with NA, dilations
+    [1, 2] and dropout 0.2: 2 epochs with finite losses, the train chips
+    augmented in the loader's thread (20 x 20 chips: Perlin noise needs
+    sides divisible by 10)."""
+    root = tmp_path / "chips"
+    rng = np.random.default_rng(101)
+    for _ in range(10):
+        batch = jax_create_batch(
+            num_channels=3, num_time=6, height=20, width=20, rng=rng
+        )
+        batch.to_file(root / "processed" / batch.batch_id[0])
+    dataset = ChipDataset(root)
+    params = CultionetParams(
+        ckpt_file=tmp_path / "ckpt" / "last.ckpt",
+        dataset=dataset,
+        **{
+            **CONFIG,
+            "hidden_channels": 8,
+            "dilations": [1, 2],
+            "attention_weights": "natten",
+            "dropout": 0.2,
+            "augment_prob": 0.5,
+        },
+    )
+    got = fit(params, device="cpu")
+    assert [row["epoch"] for row in got.history] == [0, 1]
+    for row in got.history:
+        for key in ("loss", "val_loss", "val_score"):
+            assert np.isfinite(row[key]), (key, row)
+    assert got.state.step == 8
+    assert (tmp_path / "ckpt" / "last_store" / "best" / "model.pt").exists()
+
+
 @pytest.mark.parametrize(
     "option",
     [
-        dict(augment_prob=0.5),
         dict(device_augment=True),
         dict(use_chipstore=True),
         dict(use_chipstore="hbm"),

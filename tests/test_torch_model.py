@@ -116,3 +116,12 @@ def test_predict_entry_point_needs_cuda_by_default(monkeypatch):
     model = CultioNet(in_time=6, hidden_channels=8)
     with pytest.raises(RuntimeError, match="device='cpu'"):
         ScenePredictor(model)
+
+
+def test_model_predict_needs_cuda_by_default(monkeypatch):
+    from cultionet_tpu_torch.model import predict
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    model = CultioNet(in_time=6, hidden_channels=8)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        predict(model, dataset=[])

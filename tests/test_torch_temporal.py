@@ -20,12 +20,9 @@ import pytest
 import torch
 
 from cultionet_tpu.data.batch import Batch as JaxBatch
-from cultionet_tpu.models import CultioNet as JaxCultioNet
 from cultionet_tpu.models import temporal as jax_temporal
 from cultionet_tpu.ops import flags as jax_flags
 from cultionet_tpu.ops.temporal_pallas import temporal_attention_pallas
-from cultionet_tpu.train import optim as jax_optim
-from cultionet_tpu.train import step as jax_step
 from cultionet_tpu_torch.models import CultioNet, TemporalTransformer
 from cultionet_tpu_torch.models.temporal import sinusoid_encoding_table
 from cultionet_tpu_torch.nn.init import init_parameters_
@@ -37,6 +34,7 @@ from cultionet_tpu_torch.utils.params import from_flax, load_flax
 from torch_port_helpers import (
     jax_transformer_model,
     port_transformer_model,
+    restore_golden_checkpoint,
     seeded_variables,
 )
 
@@ -219,39 +217,6 @@ def test_transformer_needs_a_known_encoder():
         CultioNet(in_time=6, hidden_channels=8, temporal_encoder="lstm")
 
 
-def _restore_golden_checkpoint(ckpt_dir: Path):
-    """The JAX package's ``load_model`` restore (``model._load_state``) on
-    a template traced with ``jax.eval_shape``: the same model built from
-    the checkpoint's hyperparameters and the same ``Checkpointer.restore``,
-    without ``load_model``'s eager initialization of a template (about
-    35 s on the CPU)."""
-    import dataclasses
-
-    from cultionet_tpu.data.synthetic import create_batch as jax_create_batch
-    from cultionet_tpu.train.checkpoint import Checkpointer
-
-    ckpt = Checkpointer(ckpt_dir)
-    hp = ckpt.load_meta("last")["hyperparams"]
-    fields = {
-        f.name for f in dataclasses.fields(JaxCultioNet) if f.name != "parent"
-    }
-    jax_model = JaxCultioNet(**{k: v for k, v in hp.items() if k in fields})
-    init_batch = jax_create_batch(
-        num_channels=hp["in_channels"], num_time=hp["in_time"], height=32,
-        width=32, rng=np.random.default_rng(0),
-    )
-    abstract = jax.eval_shape(
-        lambda: jax_step.create_train_state(
-            jax_model, jax_optim.build_optimizer("AdamW", 1e-3), init_batch,
-            seed=0,
-        )
-    )
-    template = jax.tree_util.tree_map(
-        lambda leaf: np.zeros(leaf.shape, leaf.dtype), abstract
-    )
-    return ckpt.restore(template, "last", with_opt_state=False), jax_model
-
-
 def test_trained_checkpoint_matches_golden_raster():
     """The trained transformer checkpoint (hidden 8, T = 13), translated,
     through the port's ScenePredictor in fp32 on the CPU over the golden
@@ -262,7 +227,7 @@ def test_trained_checkpoint_matches_golden_raster():
 
     golden_dir = DATA / "golden_transformer"
     golden, *_ = read_tiff(golden_dir / "golden.tif")
-    state, jax_model = _restore_golden_checkpoint(
+    state, jax_model = restore_golden_checkpoint(
         golden_dir / "ckpt" / "last_store"
     )
     assert jax_model.temporal_encoder == "transformer"

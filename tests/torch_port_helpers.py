@@ -74,3 +74,41 @@ def port_transformer_model(hidden, in_time=6, dropout=0.2):
         in_time=in_time, hidden_channels=hidden, dilations=[1, 2],
         dropout=dropout, temporal_encoder="transformer",
     )
+
+
+def restore_golden_checkpoint(ckpt_dir):
+    """A trained golden checkpoint (``tests/data/golden*/ckpt/last_store``)
+    restored as the JAX package's ``load_model`` restores it
+    (``model._load_state``), on a template traced with ``jax.eval_shape``:
+    the same model built from the checkpoint's hyperparameters and the same
+    ``Checkpointer.restore``, without ``load_model``'s eager initialization
+    of a template (about 35 s on the CPU). Returns the state and the JAX
+    model."""
+    import dataclasses
+
+    from cultionet_tpu.data.synthetic import create_batch as jax_create_batch
+    from cultionet_tpu.models import CultioNet as JaxCultioNet
+    from cultionet_tpu.train import optim as jax_optim
+    from cultionet_tpu.train import step as jax_step
+    from cultionet_tpu.train.checkpoint import Checkpointer
+
+    ckpt = Checkpointer(ckpt_dir)
+    hp = ckpt.load_meta("last")["hyperparams"]
+    fields = {
+        f.name for f in dataclasses.fields(JaxCultioNet) if f.name != "parent"
+    }
+    jax_model = JaxCultioNet(**{k: v for k, v in hp.items() if k in fields})
+    init_batch = jax_create_batch(
+        num_channels=hp["in_channels"], num_time=hp["in_time"], height=32,
+        width=32, rng=np.random.default_rng(0),
+    )
+    abstract = jax.eval_shape(
+        lambda: jax_step.create_train_state(
+            jax_model, jax_optim.build_optimizer("AdamW", 1e-3), init_batch,
+            seed=0,
+        )
+    )
+    template = jax.tree_util.tree_map(
+        lambda leaf: np.zeros(leaf.shape, leaf.dtype), abstract
+    )
+    return ckpt.restore(template, "last", with_opt_state=False), jax_model
