@@ -120,6 +120,27 @@ on the first phase that fails:
     bounds, cell size and CRS and the sidecar's transform as written; the
     chip-file raster at fp32 within 1e-4 max-abs of ``predict_scene`` on
     the same float scene. Windows/s and the raster write's seconds.
+19. cli (the command line, the main path of the CLI slice): a seeded
+    project of 20 regions (scene.npz of 12 x 100 x 100 x 3 int16 and a
+    polygons.json field layout of 16-25 jittered fields, some concave,
+    some with a hole, the outer ones past the scene's edge) and one 420 x
+    420 region, driven in-process through ``scripts/cli.py::main`` at the
+    CLI defaults: ``create`` (20 chips, each chip's crop parcels equal to
+    its fields), ``train --skip-train`` (the normalization statistics and
+    the model build, no launch), ``train --epochs 2`` then a resume to 3
+    (the launches of ``fit``: per train step 3 na2d_fwd_drop and 3
+    na2d_bwd_drop, per validation batch 3 na2d_fwd), ``last``/``best``
+    and a finite history,
+    ``create-predict --window-size 100 --padding 20`` (25 chips),
+    ``predict`` to a GeoTIFF (12 na2d_fwd; the TIFF equal to its sidecar,
+    the scene's bounds, transform and CRS; bit for bit the raster of
+    ``predict_to_raster`` through the API on the same checkpoint and
+    chips), then ``python -m cultionet_tpu_torch version`` in a
+    subprocess. Create s per chip, the fit's epoch and train chips/s; the
+    2-epoch fit from scratch through ``model.fit`` (the same training
+    defaults and launches) at augment_prob 0.0 and 0.5 in turns, and the
+    loader alone over the 2-epoch fit's loading at augment_prob 0.0 and
+    0.5 in turns, windows/s and the raster write's seconds.
 
 Kernel times (``ms``, ``library_ms``) are device times: ``device_ms``
 queues 20 calls behind a sleep kernel so the card runs them back to back
@@ -128,7 +149,7 @@ and the host's dispatch is hidden; ``call_ms`` (NA kernels) and
 dispatch included where the card is faster than the host.
 
 Kernel launch counts are zeroed just before each path (8, 10, 12, 13,
-16-18) and read just after. Then the kernels line (seven kernels), and last
+16-19) and read just after. Then the kernels line (seven kernels), and last
 ``{"ok": true, "device": {...}}``. TF32 is off for matmuls and
 convolutions throughout, so fp32 comparisons hold fp32 arithmetic.
 """
@@ -2235,6 +2256,297 @@ def phase_predict_raster(fit_result: dict) -> None:
     del model, predictor
 
 
+CLI_REGIONS = 20  # 100 x 100, T = 12, 3 bands, 16-25 fields each
+CLI_BOUNDS = (500000.0, 4000000.0, 504200.0, 4004200.0)  # the 420^2 region
+
+
+def field_layout(rng, bounds, size: int = 100, cell_res: float = 10.0):
+    """[ring, class] pairs in world coordinates for one region: a 4 x 4 to
+    5 x 5 grid of fields (class 1), each a jittered quadrilateral 3-6 px
+    inside its grid cell; about a quarter concave (a notch cut into one
+    side), about one in seven with a hole (reached through a zero-width
+    slit, the hole's ring inside the field's one ring); the fields of the
+    outer rows and columns run 4 px past the scene's edge."""
+    left, _, _, top = bounds
+    rows, cols = [(4, 4), (4, 5), (5, 4), (5, 5)][int(rng.integers(0, 4))]
+    ys, xs = np.linspace(0, size, rows + 1), np.linspace(0, size, cols + 1)
+    shapes = []
+    for i in range(rows):
+        for j in range(cols):
+            r0 = ys[i] + 1.5 + rng.uniform(0, 1.5) - 4 * (i == 0)
+            r1 = ys[i + 1] - 1.5 - rng.uniform(0, 1.5) + 4 * (i == rows - 1)
+            c0 = xs[j] + 1.5 + rng.uniform(0, 1.5) - 4 * (j == 0)
+            c1 = xs[j + 1] - 1.5 - rng.uniform(0, 1.5) + 4 * (j == cols - 1)
+            corners = [
+                (r + rng.uniform(-1.2, 1.2), c + rng.uniform(-1.2, 1.2))
+                for r, c in ((r0, c0), (r0, c1), (r1, c1), (r1, c0))
+            ]
+            kind = rng.random()
+            ring = list(corners)
+            if kind < 0.25:
+                rm, cm = (r0 + r1) / 2, c1 - 0.4 * (c1 - c0)
+                ring[2:2] = [(rm - 2, c1), (rm, cm), (rm + 2, c1)]
+            ring.append(ring[0])
+            if 0.25 <= kind < 0.4:
+                hr = (r0 + 0.35 * (r1 - r0), r0 + 0.65 * (r1 - r0))
+                hc = (c0 + 0.35 * (c1 - c0), c0 + 0.65 * (c1 - c0))
+                hole = [(hr[0], hc[0]), (hr[1], hc[0]), (hr[1], hc[1]),
+                        (hr[0], hc[1]), (hr[0], hc[0])]
+                ring += hole + [ring[0]]
+            shapes.append(
+                [[[left + c * cell_res, top - r * cell_res] for r, c in ring], 1]
+            )
+    return shapes
+
+
+def write_cli_project(project) -> list:
+    """A seeded project of CLI_REGIONS regions ``rNN`` (scene.npz of 12 x
+    100 x 100 x 3 int16 x 10000 at 10 m cells, and polygons.json with a
+    field layout) and one 420 x 420 region ``predict`` (no polygons);
+    returns each region's field count."""
+    rng = np.random.default_rng(31)
+    fields = []
+    for k in range(CLI_REGIONS):
+        region = project / "time_series_vars" / f"r{k:02d}"
+        region.mkdir(parents=True)
+        bounds = (600000.0 + 2000.0 * k, 4100000.0, 601000.0 + 2000.0 * k, 4101000.0)
+        np.savez(
+            region / "scene.npz",
+            x=(rng.random((12, 100, 100, 3)) * 10000).astype("int16"),
+            bounds=np.asarray(bounds), cell_res=np.asarray(10.0),
+            crs=np.asarray("EPSG:32633"),
+        )
+        shapes = field_layout(rng, bounds)
+        (region / "polygons.json").write_text(json.dumps(shapes))
+        fields.append(len(shapes))
+    region = project / "time_series_vars" / "predict"
+    region.mkdir(parents=True)
+    np.savez(
+        region / "scene.npz",
+        x=(rng.random((12, 420, 420, 3)) * 10000).astype("int16"),
+        bounds=np.asarray(CLI_BOUNDS), cell_res=np.asarray(10.0),
+        crs=np.asarray("EPSG:32633"),
+    )
+    return fields
+
+
+def phase_cli(workdir) -> None:
+    """The port's command line in-process (``scripts/cli.py::main``) at the
+    CLI defaults (hidden 64, natten, dropout 0.2, augment_prob 0.5, batch 4,
+    "16-mixed"), on a project of field-layout regions: ``create``; ``train
+    --skip-train`` (the normalization statistics and the model build);
+    ``train --epochs 2`` then a resume to 3; 2-epoch ``model.fit`` runs at
+    augment_prob 0.0 and 0.5 in turns; ``create-predict --window-size 100
+    --padding 20`` of the 420^2 region; ``predict`` to a GeoTIFF; then
+    ``python -m cultionet_tpu_torch version`` in a subprocess. The loader
+    alone over the 2-epoch fit's loading at augment_prob 0.0 and 0.5, in
+    turns; the CLI's raster against ``predict_to_raster`` through the API
+    on the same checkpoint and chips."""
+    from cultionet_tpu_torch import __version__
+    from cultionet_tpu_torch.augment import label_segments
+    from cultionet_tpu_torch.data.datasets import ChipDataset
+    from cultionet_tpu_torch.data.tiny_tiff import read_tiff
+    from cultionet_tpu_torch.model import fit, load_model
+    from cultionet_tpu_torch.predict import ScenePredictor
+    from cultionet_tpu_torch.scripts.cli import main as cli
+    from cultionet_tpu_torch.utils.normalize import NormValues
+
+    project = workdir / "cli_project"
+    fields = write_cli_project(project)
+    p = ["-p", str(project)]
+    regions = [f"r{k:02d}" for k in range(CLI_REGIONS)]
+
+    start = time.perf_counter()
+    cli(["create", *p, "--regions", *regions])
+    create_s = time.perf_counter() - start
+    chips = sorted((project / "data" / "train" / "processed").glob("*.npz"))
+    require(len(chips) == CLI_REGIONS, f"cli create wrote {len(chips)} chips")
+    parcels = []
+    for path in chips:
+        with np.load(path) as data:
+            parcels.append(int(label_segments(data["y"][0]).max()))
+    require(
+        all(16 <= n <= 25 for n in parcels) and parcels == fields,
+        f"cli create: parcels {parcels}, fields {fields}",
+    )
+
+    # The first train of a project computes its normalization statistics;
+    # --skip-train does that and builds the model, so the 2-epoch run
+    # below holds the epochs' work and the resumed run's is subtracted.
+    zero_launches()
+    start = time.perf_counter()
+    cli(["train", *p, "--skip-train"])
+    train_setup_s = time.perf_counter() - start
+    launches = read_launches()
+    require(
+        not any(launches.values())
+        and (project / "ckpt" / "last.norm.npz").is_file()
+        and not (project / "ckpt" / "last_store" / "last").exists(),
+        f"cli train --skip-train: launched {launches}",
+    )
+    runs = {}
+    for epochs, steps, val_batches in ((2, 8, 2), (3, 4, 1)):
+        zero_launches()
+        start = time.perf_counter()
+        cli(["train", *p, "--epochs", str(epochs)])
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - start
+        launches = read_launches()
+        require(
+            launches == fit_launches(steps, val_batches),
+            f"cli train ({epochs} epochs) launched {launches}",
+        )
+        runs[epochs] = (seconds, launches)
+    store = project / "ckpt" / "last_store"
+    for which in ("last", "best"):
+        require((store / which / "model.pt").exists(), f"cli train: no {which}")
+    rows = (project / "ckpt" / "history.csv").read_text().splitlines()
+    history = [
+        {k: float(v) for k, v in zip(rows[0].split(","), r.split(","))}
+        for r in rows[1:]
+    ]
+    require(
+        [r["epoch"] for r in history] == [0, 1, 2]
+        and all(np.isfinite(list(r.values())).all() for r in history),
+        f"cli train: history {history}",
+    )
+    epoch_s = runs[2][0] - runs[3][0]
+    norm = NormValues.from_file(project / "ckpt" / "last.norm.npz")
+
+    # The price of augment_prob 0.5 on these chips: 2-epoch fits from
+    # scratch through the API (the CLI's training defaults, ``fit_params``)
+    # at 0.0 and 0.5 in turns, each into a fresh checkpoint directory.
+    fits = {0.0: [], 0.5: []}
+    for turn, prob in enumerate((0.0, 0.5, 0.5, 0.0)):
+        zero_launches()
+        start = time.perf_counter()
+        fit(fit_params(project / "data" / "train", workdir / f"cli_fit_{turn}",
+                       norm, 2, augment_prob=prob))
+        torch.cuda.synchronize()
+        fits[prob].append(time.perf_counter() - start)
+        launches = read_launches()
+        require(
+            launches == fit_launches(8, 2),
+            f"cli fit at {prob} launched {launches}",
+        )
+    loader = {0.0: [], 0.5: []}
+    for prob in (0.0, 0.5, 0.5, 0.0):
+        loader[prob].append(loader_s(project / "data" / "train", norm, prob, 2))
+
+    start = time.perf_counter()
+    cli(["create-predict", *p, "--regions", "predict", "--window-size", "100",
+         "--padding", "20"])
+    create_predict_s = time.perf_counter() - start
+    windows = sorted((project / "data" / "predict" / "processed").glob("*.npz"))
+    require(len(windows) == 25, f"cli create-predict wrote {len(windows)} chips")
+
+    out = project / "out" / "predict.tif"
+    zero_launches()
+    start = time.perf_counter()
+    cli(["predict", *p, "--region", "predict", "-o", str(out)])
+    torch.cuda.synchronize()
+    predict_s = time.perf_counter() - start
+    predict_launches = read_launches()
+    want = {name: 0 for name in predict_launches}
+    want["na2d_fwd"] = 12
+    require(predict_launches == want, f"cli predict launched {predict_launches}")
+
+    bands, read_bounds, res, crs = read_tiff(out)
+    with np.load(out.with_suffix(".npz")) as sidecar:
+        packed = sidecar["raster"]
+        side_bounds = tuple(sidecar["bounds"])
+        transform = tuple(sidecar["transform"])
+    require(
+        bands.shape == (3, 420, 420) and np.array_equal(bands, packed),
+        f"cli predict: tiff {bands.shape} differs from its sidecar",
+    )
+    want_bounds = tuple(float(np.float32(v)) for v in CLI_BOUNDS)
+    left, bottom, right, top = want_bounds
+    require(
+        side_bounds == want_bounds
+        and np.allclose(read_bounds, want_bounds, rtol=0, atol=1e-6)
+        and transform
+        == ((right - left) / 420, 0.0, left, 0.0, -(top - bottom) / 420, top)
+        and crs == "EPSG:32633",
+        f"cli predict: bounds {read_bounds} / {side_bounds}, transform "
+        f"{transform}, crs {crs}",
+    )
+
+    # The same checkpoint and chips through the API: equal bit for bit.
+    _, model = load_model(store, "best")
+    predictor = ScenePredictor(model, batch_size=8, device="cuda")
+    dataset = ChipDataset(
+        project / "data" / "predict", pattern="data_predict*", norm_values=norm
+    )
+    zero_launches()
+    start = time.perf_counter()
+    predictor.predict_windows(dataset)
+    windows_s = time.perf_counter() - start
+    start = time.perf_counter()
+    api_out = predictor.predict_to_raster(
+        dataset, project / "out" / "api.tif", crs="EPSG:32633"
+    )
+    to_raster_s = time.perf_counter() - start
+    api_launches = read_launches()
+    require(api_launches["na2d_fwd"] == 24, f"cli api predict {api_launches}")
+    api_bands = read_tiff(api_out)[0]
+    require(
+        np.array_equal(api_bands, bands),
+        "cli predict differs from predict_to_raster: "
+        f"{int((api_bands != bands).sum())} values",
+    )
+    del model, predictor
+
+    version = subprocess.run(
+        [sys.executable, "-m", "cultionet_tpu_torch", "version"],
+        capture_output=True, text=True, timeout=300,
+        cwd=Path(__file__).resolve().parent,
+    )
+    require(
+        version.returncode == 0 and version.stdout.strip() == __version__,
+        f"python -m cultionet_tpu_torch version: {version.returncode} "
+        f"{version.stdout!r} {version.stderr[-2000:]!r}",
+    )
+    emit(
+        {
+            "phase": "cli",
+            "chips": [CLI_REGIONS, 12, 100, 100, 3],
+            "augment_prob": 0.5,
+            "precision": "16-mixed",
+            "create_s": create_s,
+            "create_s_per_chip": create_s / CLI_REGIONS,
+            "fields_per_chip": fields,
+            "parcels_per_chip": parcels,
+            "train_setup_s": train_setup_s,
+            "fit_2_epochs_s": runs[2][0],
+            "fit_resumed_1_epoch_s": runs[3][0],
+            # 2-epoch run less the resumed run: holds the first run's
+            # one-off costs and subtracts the restore. The in-turns fits
+            # below are the phase's measure of an epoch at 0.0 and 0.5.
+            "epoch_s_by_difference_incl_one_off": epoch_s,
+            "epoch_train_chips_per_s_by_difference_incl_one_off": 16
+            / epoch_s,
+            "api_fit_2_epochs_s_augment_0": fits[0.0],
+            "api_fit_2_epochs_s_augment_0.5": fits[0.5],
+            "loader_2_epochs_s_augment_0": loader[0.0],
+            "loader_2_epochs_s_augment_0.5": loader[0.5],
+            "loader_share_of_fit_2_epochs_augment_0.5": max(loader[0.5])
+            / min(fits[0.5]),
+            "create_predict_s": create_predict_s,
+            "predict_cli_s": predict_s,
+            "predict_windows_s": windows_s,
+            "windows_per_s": 25 / windows_s,
+            "predict_to_raster_s": to_raster_s,
+            "raster_write_s": to_raster_s - windows_s,
+            "history": history,
+            "launches": runs[2][1],
+            "resumed_launches": runs[3][1],
+            "predict_launches": predict_launches,
+            "version": version.stdout.strip(),
+        }
+    )
+
+
 def kernel_entry(name, source, replaces, launches, summary) -> dict:
     return {
         "name": name,
@@ -2298,6 +2610,7 @@ def main() -> int:
         fit_result = phase_fit(conv_steps_per_s, Path(tmp))
         phase_fit_augment(fit_result)
         phase_predict_raster(fit_result)
+        phase_cli(Path(tmp))
 
     fwd_src = "cultionet_tpu_torch/ops/csrc/na2d_fwd.cu"
     bwd_src = "cultionet_tpu_torch/ops/csrc/na2d_bwd.cu"

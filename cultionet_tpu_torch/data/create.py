@@ -1,17 +1,19 @@
-"""Predict windows: the scene's window geometry for in-memory predict, and
-the window chips of ``create-predict`` (port-owned copies of
-cultionet_tpu/data/create.py::iter_window_jobs, _slice_window,
-BatchStore, create_predict_dataset and the ``fill_zeros=False`` path of
-prepare_image_time_series).
+"""Offline chip creation (port of cultionet_tpu/data/create.py): the train
+chips of ``create`` and the overlapping window chips of ``create-predict``,
+with the scene's window geometry for in-memory predict.
 
-Not ported yet: the train chips (``create_train_batch``, with
-``label_math.py`` and ``vector.py``).
+A train chip burns the region's polygons into labels (``label_math.py``,
+numpy and scipy), computes the boundary distances and writes one ``.npz``
+chip in the JAX package's layout, names and dtypes, so either package's
+``ChipDataset`` reads it. Predict windows are written in parallel, by
+forked processes or threads, each write verified by a read-back.
 """
 
 import typing as T
 import zipfile
 import zlib
 from concurrent.futures import ThreadPoolExecutor
+from dataclasses import dataclass
 from functools import partial
 from pathlib import Path
 
@@ -19,15 +21,31 @@ import numpy as np
 import torch
 
 from .batch import Batch
+from .label_math import (
+    cleanup_edges,
+    edge_gradient,
+    fillz,
+    get_crop_count,
+    normalize_boundary_distances,
+    polygons_to_array,
+)
+
+Shapes = T.Sequence[T.Tuple[T.Any, int]]
 
 
 def prepare_image_time_series(
     time_series: np.ndarray,
     gain: float = 1e-4,
     offset: float = 0.0,
+    fill_zeros: bool = False,
 ) -> np.ndarray:
-    """Gain/offset scaling and NaN masking, clipped to [0, 1] (no focal-mean
-    zero fill: the predict path does not use it)."""
+    """Gain/offset scaling (for integer records or values above 2), NaN
+    masking and, with ``fill_zeros``, the 3 x 3 focal-mean fill of
+    zeros over each (H, W) frame; clipped to [0, 1] as float32.
+
+    The train chips fill zeros; the predict path does not, and this is the
+    port's default (the JAX function's default is ``fill_zeros=True``).
+    """
     x = np.asarray(time_series, dtype="float64")
     apply_gain = np.issubdtype(time_series.dtype, np.integer) or (
         np.nanmax(x) > 2.0 if x.size else False
@@ -35,7 +53,222 @@ def prepare_image_time_series(
     if apply_gain:
         x = x * gain + offset
     x = np.nan_to_num(x, nan=0.0, posinf=0.0, neginf=0.0)
+    if fill_zeros:
+        x = np.moveaxis(fillz(np.moveaxis(x, -1, 1)), 1, -1)
     return np.clip(x, 0.0, 1.0).astype("float32")
+
+
+def is_grid_processed(
+    process_path: Path,
+    transforms: T.Sequence[str],
+    region: str,
+    start_date: str,
+    end_date: str,
+) -> bool:
+    """True when every ``data_<region>_<start>_<end>_<transform>.npz`` chip
+    exists."""
+    return all(
+        (
+            Path(process_path)
+            / f"data_{region}_{start_date}_{end_date}_{aug}.npz"
+        ).is_file()
+        for aug in transforms
+    )
+
+
+@dataclass
+class ReferenceArrays:
+    """Label arrays derived from training polygons."""
+
+    labels_array: T.Optional[np.ndarray] = None
+    boundary_distance: T.Optional[np.ndarray] = None
+    edge_array: T.Optional[np.ndarray] = None
+
+    @classmethod
+    def from_polygons(
+        cls,
+        polygons: Shapes,
+        bounds: T.Tuple[float, float, float, float],
+        out_shape: T.Tuple[int, int],
+        max_crop_class: int,
+        edge_class: int,
+        cell_res: float,
+        keep_crop_classes: bool = False,
+        nonag_is_unknown: bool = False,
+        geom_type: str = "Polygon",
+        all_touched: bool = True,
+    ) -> "ReferenceArrays":
+        """Burn the polygons (and an instance raster, one id per polygon),
+        mark the instance raster's boundaries with ``edge_class``, clean the
+        edges up and compute the boundary distances of the crop pixels.
+        Crop classes collapse to ``max_crop_class`` unless
+        ``keep_crop_classes``; with ``nonag_is_unknown`` the background is
+        -1. (The JAX class also carries a Sobel orientation; nothing on this
+        path reads it.)"""
+        unique_shapes = [
+            (poly, idx + 1) for idx, (poly, _) in enumerate(polygons)
+        ]
+        labels_array_unique = polygons_to_array(
+            unique_shapes, bounds, out_shape, all_touched=all_touched
+        )
+
+        fill_value, dtype = 0, "uint8"
+        if nonag_is_unknown:
+            fill_value, dtype = -1, "int16"
+
+        labels_array = polygons_to_array(
+            polygons,
+            bounds,
+            out_shape,
+            fill_value=fill_value,
+            dtype=dtype,
+            all_touched=all_touched,
+        )
+
+        # With integer-pixel burn-in the instance raster's morphological
+        # gradient is the polygons' boundary.
+        edge_array = edge_gradient(labels_array_unique)
+        image_grad_count = get_crop_count(edge_array, edge_class)
+        edge_array = np.where(image_grad_count > 0, edge_array, 0)
+
+        if not keep_crop_classes:
+            labels_array = np.where(
+                labels_array > 0, max_crop_class, fill_value
+            )
+
+        labels_array = labels_array.astype("int16")
+        labels_array[edge_array == 1] = edge_class
+        labels_array = cleanup_edges(
+            np.where(labels_array == fill_value, 0, labels_array),
+            labels_array_unique,
+            edge_class,
+        )
+        labels_array = np.where(labels_array == 0, fill_value, labels_array)
+
+        if labels_array.max() > edge_class:
+            raise ValueError(
+                f"labels reach {labels_array.max()}, above the edge class "
+                f"{edge_class}: raise max_crop_class"
+            )
+
+        boundary_distance = normalize_boundary_distances(
+            np.uint8((labels_array > 0) & (labels_array != edge_class)),
+            geom_type,
+            cell_res,
+        )
+        return cls(
+            labels_array=labels_array,
+            boundary_distance=boundary_distance,
+            edge_array=edge_array,
+        )
+
+
+def _host(value, dtype: str) -> torch.Tensor:
+    return torch.from_numpy(np.asarray(value, dtype=dtype))
+
+
+def create_train_batch(
+    image_time_series: np.ndarray,  # (T, H, W, C)
+    polygons: T.Optional[Shapes],
+    bounds: T.Tuple[float, float, float, float],
+    cell_res: float,
+    region: str,
+    process_path: T.Union[str, Path],
+    start_date: str = "0",
+    end_date: str = "1",
+    max_crop_class: int = 1,
+    edge_class: T.Optional[int] = None,
+    gain: float = 1e-4,
+    offset: float = 0.0,
+    keep_crop_classes: bool = False,
+    nonag_is_unknown: bool = False,
+    overwrite: bool = False,
+    all_touched: bool = True,
+    zero_padding: int = 0,
+    grid_size: T.Optional[T.Tuple[int, int]] = None,
+    compression: str = "zlib",
+) -> T.Optional[Path]:
+    """Build one training chip and write it to
+    ``process_path/data_<region>_<start>_<end>_none.npz``; returns its
+    path, or None when it exists and ``overwrite`` is off.
+
+    ``grid_size`` (rows, cols) refuses a region of another size with
+    ``ValueError``; ``zero_padding`` pads H and W with zeros (labels with
+    the background) on every side and widens the bounds to match;
+    ``all_touched`` also burns each polygon's outline. Without polygons the
+    labels are all background and the distances 0.
+    """
+    process_path = Path(process_path)
+    process_path.mkdir(parents=True, exist_ok=True)
+    if edge_class is None:
+        edge_class = max_crop_class + 1
+
+    if not overwrite and is_grid_processed(
+        process_path, ["none"], region, start_date, end_date
+    ):
+        return None
+
+    x = prepare_image_time_series(
+        image_time_series, gain=gain, offset=offset, fill_zeros=True
+    )
+    _, height, width, _ = x.shape
+    if grid_size is not None:
+        expected_rows, expected_cols = grid_size
+        if (height, width) != (int(expected_rows), int(expected_cols)):
+            raise ValueError(
+                f"Grid {region} is {height} rows x {width} columns, but "
+                f"--grid-size expects {expected_rows} x {expected_cols}"
+            )
+
+    fill = -1 if nonag_is_unknown else 0
+    if polygons:
+        ref = ReferenceArrays.from_polygons(
+            polygons=polygons,
+            bounds=bounds,
+            out_shape=(height, width),
+            max_crop_class=max_crop_class,
+            edge_class=edge_class,
+            cell_res=cell_res,
+            keep_crop_classes=keep_crop_classes,
+            nonag_is_unknown=nonag_is_unknown,
+            all_touched=all_touched,
+        )
+        labels = ref.labels_array
+        bdist = ref.boundary_distance
+    else:
+        labels = np.full((height, width), fill, dtype="int16")
+        bdist = np.zeros((height, width), dtype="float32")
+
+    if zero_padding > 0:
+        pad = int(zero_padding)
+        x = np.pad(
+            x, ((0, 0), (pad, pad), (pad, pad), (0, 0)), mode="constant"
+        )
+        labels = np.pad(labels, ((pad, pad), (pad, pad)), constant_values=fill)
+        bdist = np.pad(bdist, ((pad, pad), (pad, pad)))
+        left_pad = pad * cell_res
+        bounds = (
+            bounds[0] - left_pad,
+            bounds[1] - left_pad,
+            bounds[2] + left_pad,
+            bounds[3] + left_pad,
+        )
+
+    left, bottom, right, top = bounds
+    train_id = f"data_{region}_{start_date}_{end_date}_none"
+    batch = Batch(
+        x=_host(x[None], "float32"),
+        y=_host(labels[None], "int32"),
+        bdist=_host(bdist[None], "float32"),
+        left=_host([left], "float32"),
+        bottom=_host([bottom], "float32"),
+        right=_host([right], "float32"),
+        top=_host([top], "float32"),
+        batch_id=(f"{train_id}.npz",),
+    )
+    out_path = process_path / f"{train_id}.npz"
+    batch.to_file(out_path, compression=compression)
+    return out_path
 
 
 def iter_window_jobs(
@@ -136,21 +369,18 @@ class BatchStore:
         )
         left, bottom, right, top = self.bounds
 
-        def one(value, dtype: str) -> torch.Tensor:
-            return torch.from_numpy(np.asarray([value], dtype=dtype))
-
         batch = Batch(
-            x=torch.from_numpy(np.asarray(x_window[None], dtype="float32")),
-            window_row_off=one(row_off, "int32"),
-            window_col_off=one(col_off, "int32"),
-            window_height=one(window_height, "int32"),
-            window_width=one(window_width, "int32"),
-            window_pad_bottom=one(max(pad_bottom, 0), "int32"),
-            window_pad_right=one(max(pad_right, 0), "int32"),
-            left=one(left, "float32"),
-            bottom=one(bottom, "float32"),
-            right=one(right, "float32"),
-            top=one(top, "float32"),
+            x=_host(x_window[None], "float32"),
+            window_row_off=_host([row_off], "int32"),
+            window_col_off=_host([col_off], "int32"),
+            window_height=_host([window_height], "int32"),
+            window_width=_host([window_width], "int32"),
+            window_pad_bottom=_host([max(pad_bottom, 0)], "int32"),
+            window_pad_right=_host([max(pad_right, 0)], "int32"),
+            left=_host([left], "float32"),
+            bottom=_host([bottom], "float32"),
+            right=_host([right], "float32"),
+            top=_host([top], "float32"),
             batch_id=(f"{batch_id}.npz",),
         )
         out_path = self.write_path / f"{batch_id}.npz"

@@ -16,6 +16,31 @@ class AttentionTypes(StrEnum):
     SPATIAL_CHANNEL = "spatial_channel"
 
 
+class CLISteps(StrEnum):
+    CREATE = "create"
+    CREATE_PREDICT = "create-predict"
+    SKFOLDCV = "skfoldcv"
+    TRAIN = "train"
+    TRAIN_TRANSFER = "train-transfer"
+    PREDICT = "predict"
+    PREDICT_TRANSFER = "predict-transfer"
+    IMPORT_TORCH = "import-torch"
+    EXPORT = "export"
+    VERSION = "version"
+
+
+class Destinations(StrEnum):
+    CKPT = "ckpt"
+    DATA = "data"
+    FIGURES = "figures"
+    PREDICT = "predict"
+    PROCESSED = "processed"
+    TRAIN = "train"
+    TEST = "test"
+    TIME_SERIES_VARS = "time_series_vars"
+    USER_TRAIN = "user_train"
+
+
 class InferenceNames(StrEnum):
     CLASSES_L2 = "classes_l2"
     CLASSES_L3 = "classes_l3"
@@ -36,6 +61,13 @@ class LossTypes(StrEnum):
     TANIMOTO = "TanimotoDistLoss"
     TANIMOTO_COMBINED = "TanimotoCombined"
     TVERSKY = "TverskyLoss"
+
+
+class ModelNames(StrEnum):
+    CLASS_INFO = "classes.info"
+    CKPT_NAME = "last.ckpt"
+    CKPT_TRANSFER_NAME = "last_transfer.ckpt"
+    NORM = "last.norm"
 
 
 class ModelTypes(StrEnum):

@@ -35,6 +35,30 @@ def fit(params: CultionetParams, device="cuda") -> FitResult:
     return _fit(params, device=device)
 
 
+def _choose_checkpoint(
+    ckpt_dir: T.Union[str, Path], which: str
+) -> T.Tuple[Checkpointer, str]:
+    """The store and the checkpoint in it to read: ``best`` falls back to
+    ``last``."""
+    if not Path(ckpt_dir).is_dir():
+        raise FileNotFoundError(f"No checkpoint under {ckpt_dir}")
+    ckpt = Checkpointer(Path(ckpt_dir))
+    if not (ckpt.has_best() or ckpt.has_last()):
+        raise FileNotFoundError(f"No checkpoint under {ckpt_dir}")
+    if which == "best" and not ckpt.has_best():
+        which = "last"
+    return ckpt, which
+
+
+def checkpoint_hyperparams(
+    ckpt_dir: T.Union[str, Path], which: str = "best"
+) -> dict:
+    """The hyperparams saved with the checkpoint ``load_model`` restores
+    for the same ``which``."""
+    ckpt, which = _choose_checkpoint(ckpt_dir, which)
+    return dict(ckpt.load_meta(which)["hyperparams"])
+
+
 def load_model(
     ckpt_dir: T.Union[str, Path], which: str = "best", device="cuda"
 ) -> T.Tuple[TrainState, CultioNet]:
@@ -43,13 +67,7 @@ def load_model(
     optimizer state); ``which`` falls back from ``best`` to ``last``.
     The model goes to ``predict.py::ScenePredictor`` as it is."""
     device = resolve_device(device)
-    if not Path(ckpt_dir).is_dir():
-        raise FileNotFoundError(f"No checkpoint under {ckpt_dir}")
-    ckpt = Checkpointer(Path(ckpt_dir))
-    if not (ckpt.has_best() or ckpt.has_last()):
-        raise FileNotFoundError(f"No checkpoint under {ckpt_dir}")
-    if which == "best" and not ckpt.has_best():
-        which = "last"
+    ckpt, which = _choose_checkpoint(ckpt_dir, which)
     hp = dict(ckpt.load_meta(which)["hyperparams"])
     in_channels = hp.get("in_channels", 3)
     for key in _NON_MODEL_KEYS:

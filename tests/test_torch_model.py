@@ -96,7 +96,7 @@ def test_port_imports_no_jax():
         bad = sorted(
             m for m in sys.modules
             if m.split(".")[0] in ("jax", "jaxlib", "flax", "optax", "orbax",
-                                   "cultionet_tpu")
+                                   "cultionet_tpu", "cv2", "yaml")
         )
         assert not bad, bad
         print("ok")
