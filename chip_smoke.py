@@ -120,7 +120,27 @@ on the first phase that fails:
     bounds, cell size and CRS and the sidecar's transform as written; the
     chip-file raster at fp32 within 1e-4 max-abs of ``predict_scene`` on
     the same float scene. Windows/s and the raster write's seconds.
-19. cli (the command line, the main path of the CLI slice): a seeded
+19. export (the serving export, the main path of the serving slice):
+    ``export_predictor`` of the fit phase's best checkpoint and
+    ``export_state`` of the seeded full-width transformer model, at batch
+    8 of 140-px windows, in bf16 and fp32; a fresh process loads the four
+    artifacts with ``load_predictor`` alone (no module of the port's
+    ``models`` or ``nn`` imported), each call launching 3 na2d_fwd (and 3
+    temporal_fwd with the transformer) and nothing else, its graph naming
+    the registered ops; its rasters on a seeded int16 batch equal to the
+    in-process predict step's within 1e-5 (fp32) and 2e-2 (bf16), both
+    with cuDNN's deterministic algorithms (with its defaults two calls of
+    the fp32 step differ by up to about 1e-5, recorded). Served chips/s of
+    ``call_on_device`` beside the in-process step's, export seconds and
+    artifact bytes.
+20. transfer (the rest of single-card train): ``fit_transfer`` from the
+    fit's store for 1 epoch with ``finetune`` None and "fc" (the backbone
+    bit for bit, the heads and BatchNorm statistics moved, the launches of
+    ``fit``), a 20-step ``lr_find`` (rising learning rates, a suggestion
+    or a divergence, 3 na2d_fwd_drop and 3 na2d_bwd_drop a step), a
+    1-epoch fit with ``model_pruning`` (each pruned tensor at least 20%
+    zeros) and a 1-epoch RAdam fit (finite losses).
+21. cli (the command line, the main path of the CLI slice): a seeded
     project of 20 regions (scene.npz of 12 x 100 x 100 x 3 int16 and a
     polygons.json field layout of 16-25 jittered fields, some concave,
     some with a hole, the outer ones past the scene's edge) and one 420 x
@@ -135,9 +155,14 @@ on the first phase that fails:
     ``predict`` to a GeoTIFF (12 na2d_fwd; the TIFF equal to its sidecar,
     the scene's bounds, transform and CRS; bit for bit the raster of
     ``predict_to_raster`` through the API on the same checkpoint and
-    chips), then ``python -m cultionet_tpu_torch version`` in a
-    subprocess. Create s per chip, the fit's epoch and train chips/s; the
-    2-epoch fit from scratch through ``model.fit`` (the same training
+    chips), ``train-transfer`` for 1 epoch (the launches of ``fit``),
+    ``export`` (bf16, batch 8, 140-px windows) with the region's window
+    chips served through the artifact (the blended raster within 2e-2 of
+    ``predict``'s), ``train --spatial-partitions FILE --partition-name
+    east`` on a copy of the chips (10 train, 10 validation chips), then
+    ``python -m cultionet_tpu_torch version`` in a subprocess. Create s
+    per chip, the fit's epoch and train chips/s; the 2-epoch fit from
+    scratch through ``model.fit`` (the same training
     defaults and launches) at augment_prob 0.0 and 0.5 in turns, and the
     loader alone over the 2-epoch fit's loading at augment_prob 0.0 and
     0.5 in turns, windows/s and the raster write's seconds.
@@ -149,7 +174,8 @@ and the host's dispatch is hidden; ``call_ms`` (NA kernels) and
 dispatch included where the card is faster than the host.
 
 Kernel launch counts are zeroed just before each path (8, 10, 12, 13,
-16-19) and read just after. Then the kernels line (seven kernels), and last
+16-18, 20, 21; the serving process of 19 zeroes its own) and read just
+after. Then the kernels line (seven kernels), and last
 ``{"ok": true, "device": {...}}``. TF32 is off for matmuls and
 convolutions throughout, so fp32 comparisons hold fp32 arithmetic.
 """
@@ -1818,11 +1844,14 @@ def write_fit_chips(root) -> None:
         batch.to_file(root / "processed" / batch.batch_id[0])
 
 
-def fit_params(root, ckpt, norm, epochs: int, augment_prob: float = 0.0):
+def fit_params(
+    root, ckpt, norm, epochs: int, augment_prob: float = 0.0, **options
+):
     """The CLI's training defaults (hidden 64, natten, dropout 0.2,
     dilations [1, 2], "16-mixed", AdamW + OneCycle peak 0.01, weight decay
     1e-3, clip 1.0, batch 4, val_frac 0.2), host augmentation at
-    ``augment_prob`` (the CLI's default is 0.5)."""
+    ``augment_prob`` (the CLI's default is 0.5); ``options`` set other
+    fields."""
     from cultionet_tpu_torch.config import CultionetParams
     from cultionet_tpu_torch.data.datasets import ChipDataset
 
@@ -1837,13 +1866,13 @@ def fit_params(root, ckpt, norm, epochs: int, augment_prob: float = 0.0):
         dilations=[1, 2],
         activation_type="SiLU",
         precision="16-mixed",
-        optimizer="AdamW",
         lr_scheduler="OneCycleLR",
         learning_rate=0.01,
         weight_decay=1e-3,
         gradient_clip_val=1.0,
         augment_prob=augment_prob,
         epochs=epochs,
+        **{"optimizer": "AdamW", **options},
     )
 
 
@@ -2035,6 +2064,326 @@ def phase_fit(train_steps_per_s: float, workdir) -> dict:
         }
     )
     return result
+
+
+EXPORT_BATCH = 8  # the CLI's predict batch of 140-px windows (100 + 2 x 20)
+EXPORT_TIMED_CALLS = 10
+SERVE_SCRIPT = """
+import json, sys, time
+import numpy as np, torch
+from cultionet_tpu_torch.export import load_predictor
+from cultionet_tpu_torch.ops import natten_cuda, temporal_cuda
+
+# fp32 arithmetic in fp32 programs, as in the parent process.
+torch.backends.cuda.matmul.allow_tf32 = False
+torch.backends.cudnn.allow_tf32 = False
+args = json.loads(sys.argv[1])
+x = torch.from_numpy(np.load(args["wire"])).cuda()
+lat = torch.zeros(x.shape[0], device="cuda")
+lon = torch.zeros(x.shape[0], device="cuda")
+counters = (natten_cuda.LAUNCHES, temporal_cuda.LAUNCHES)
+report, rasters = {}, {}
+for name, path in args["artifacts"].items():
+    start = time.perf_counter()
+    pred = load_predictor(path)
+    load_s = time.perf_counter() - start
+    pred.call_on_device(x, lat, lon)
+    torch.cuda.synchronize()
+    start = time.perf_counter()
+    for _ in range(args["calls"]):
+        pred.call_on_device(x, lat, lon)
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - start
+    # The compared call: cuDNN's deterministic algorithms (its default
+    # transposed convolutions accumulate in a varying order).
+    torch.backends.cudnn.deterministic = True
+    for counter in counters:
+        for key in counter:
+            counter[key] = 0
+    out = pred.call_on_device(x, lat, lon)
+    torch.cuda.synchronize()
+    torch.backends.cudnn.deterministic = False
+    launches = {k: v for c in counters for k, v in c.items() if v}
+    code = pred.program.graph_module.code
+    report[name] = {
+        "load_s": load_s,
+        "launches_per_call": launches,
+        "served_chips_per_s": x.shape[0] * args["calls"] / seconds,
+        "graph_ops": pred.meta["ops"],
+        "graph_calls_na2d": code.count("cultionet_tpu_torch.na2d"),
+        "graph_calls_temporal": code.count(
+            "cultionet_tpu_torch.temporal_attention"),
+        "kernels": pred.meta["kernels"],
+    }
+    for band, value in zip(pred.meta["outputs"], out):
+        rasters[f"{name}/{band}"] = value.float().cpu().numpy()
+np.savez(args["out"], **rasters)
+report["model_modules"] = sorted(
+    m for m in sys.modules
+    if m.startswith(("cultionet_tpu_torch.models", "cultionet_tpu_torch.nn",
+                     "jax", "cultionet_tpu."))
+)
+print(json.dumps(report))
+"""
+
+
+def inprocess_predict(model, precision, x, norm):
+    """The in-process predict step (``make_predict_step``) on the int16
+    batch ``x`` after the dataset pipeline on the card (1/10000, clip to
+    [1e-9, 1], z-score in fp32): its outputs with cuDNN's deterministic
+    algorithms (the served program's compared call runs so too), its
+    chips/s over EXPORT_TIMED_CALLS calls on the device-resident
+    normalized batch with cuDNN's defaults, and the max-abs difference of
+    two calls with the defaults."""
+    from cultionet_tpu_torch.data.batch import dequantize
+    from cultionet_tpu_torch.train.step import make_predict_step
+
+    bands = ("distance", "edge", "crop")
+    mean = torch.as_tensor(norm.dataset_mean, device="cuda")
+    std = torch.as_tensor(norm.dataset_std, device="cuda")
+    vals = (dequantize(x).clamp(1e-9, 1.0) - mean) / std
+    step = make_predict_step(model, precision, "cuda")
+    first, second = step(vals), step(vals)
+    repeat = max(
+        float((first[b] - second[b]).abs().max()) for b in bands
+    )
+    torch.cuda.synchronize()
+    start = time.perf_counter()
+    for _ in range(EXPORT_TIMED_CALLS):
+        step(vals)
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - start
+    torch.backends.cudnn.deterministic = True
+    try:
+        outputs = step(vals)
+    finally:
+        torch.backends.cudnn.deterministic = False
+    return outputs, x.shape[0] * EXPORT_TIMED_CALLS / seconds, repeat
+
+
+def phase_export(fit_result: dict, workdir) -> None:
+    """The serving export on the card: ``export_predictor`` of the fit
+    phase's best checkpoint (the CLI-default conv model) and
+    ``export_state`` of the seeded full-width transformer model, each at
+    batch 8 of 140-px windows, in bf16 and in fp32, with the fit's norm
+    statistics. A fresh process loads the four artifacts with
+    ``load_predictor`` alone and must not import the port's model code
+    (``cultionet_tpu_torch.models``, ``.nn``); per call it must launch 3
+    na2d_fwd (conv) or 3 na2d_fwd and 3 temporal_fwd (transformer) and
+    nothing else, and its graph must name the registered ops. Its rasters
+    on a seeded int16 batch must be within 1e-5 (fp32) and 2e-2 (bf16) of
+    the in-process predict step's on the same batch, both computed with
+    cuDNN's deterministic algorithms: with its defaults two calls of the
+    same fp32 step differ by up to about 1e-5 (recorded). Served chips/s of
+    ``call_on_device`` on device-resident inputs beside the in-process
+    step's (cuDNN's defaults), the export's seconds and the artifact's
+    size."""
+    from cultionet_tpu_torch.export import export_predictor, export_state
+    from cultionet_tpu_torch.model import load_model
+
+    norm, store = fit_result["norm"], fit_result["store"]
+    norm_file = workdir / "export" / "last.norm.npz"
+    norm.to_file(norm_file)
+    wire = np.random.default_rng(41).integers(
+        0, 10000, size=(EXPORT_BATCH, 12, 140, 140, 3), dtype=np.int16
+    )
+    np.save(workdir / "export" / "wire.npy", wire)
+    x = torch.from_numpy(wire).cuda()
+
+    models = {"conv": load_model(store, "best")[1],
+              "transformer": build_model("transformer")}
+    artifacts, exports = {}, {}
+    for front, model in models.items():
+        for precision in ("bf16", "fp32"):
+            name = f"{front}_{precision}"
+            out = workdir / "export" / f"{name}.cnx"
+            start = time.perf_counter()
+            if front == "conv":
+                export_predictor(
+                    store, out, batch_size=EXPORT_BATCH, chip_size=140,
+                    precision=precision, which="best", norm_file=norm_file,
+                )
+            else:
+                export_state(
+                    model, out, in_time=12, in_channels=3,
+                    batch_size=EXPORT_BATCH, chip_size=140,
+                    precision=precision, norm_mean=norm.dataset_mean,
+                    norm_std=norm.dataset_std,
+                )
+            torch.cuda.synchronize()
+            exports[name] = {
+                "export_s": time.perf_counter() - start,
+                "artifact_bytes": out.stat().st_size,
+            }
+            artifacts[name] = str(out)
+
+    args = {"artifacts": artifacts, "wire": str(workdir / "export" / "wire.npy"),
+            "out": str(workdir / "export" / "served.npz"),
+            "calls": EXPORT_TIMED_CALLS}
+    start = time.perf_counter()
+    proc = subprocess.run(
+        [sys.executable, "-c", SERVE_SCRIPT, json.dumps(args)],
+        capture_output=True, text=True, timeout=600,
+        cwd=Path(__file__).resolve().parent,
+    )
+    subprocess_s = time.perf_counter() - start
+    require(
+        proc.returncode == 0,
+        f"export: serving process failed ({proc.returncode}): "
+        f"{proc.stderr[-4000:]}",
+    )
+    served = json.loads(proc.stdout.strip().splitlines()[-1])
+    require(
+        served["model_modules"] == [],
+        f"export: the serving process imported {served['model_modules']}",
+    )
+    rasters = np.load(workdir / "export" / "served.npz")
+    records, failures = {}, []
+    for name in artifacts:
+        front, precision = name.split("_")
+        report = served[name]
+        want = {"na2d_fwd": 3}
+        if front == "transformer":
+            want["temporal_fwd"] = 3
+        if report["launches_per_call"] != want:
+            failures.append(f"{name}: a call launched {report['launches_per_call']}")
+        if (
+            report["graph_calls_na2d"] != 3
+            or report["graph_calls_temporal"] != want.get("temporal_fwd", 0)
+            or report["kernels"] != "cuda"
+        ):
+            failures.append(f"{name}: graph {report}")
+        outputs, inprocess_chips_per_s, repeat = inprocess_predict(
+            models[front], precision, x, norm
+        )
+        err = max(
+            float(np.abs(rasters[f"{name}/{band}"]
+                         - outputs[band].cpu().numpy()).max())
+            for band in ("distance", "edge", "crop")
+        )
+        limit = 1e-5 if precision == "fp32" else 2e-2
+        if not err <= limit:
+            failures.append(f"{name}: served vs in-process {err} > {limit}")
+        records[name] = {
+            **exports[name],
+            **report,
+            "served_vs_inprocess_max_abs": err,
+            "limit": limit,
+            "inprocess_chips_per_s": inprocess_chips_per_s,
+            "inprocess_repeat_max_abs_default_cudnn": repeat,
+        }
+    del models
+    torch.cuda.empty_cache()
+    emit(
+        {
+            "phase": "export",
+            "input": [EXPORT_BATCH, 12, 140, 140, 3],
+            "serving_process_s": subprocess_s,
+            "artifacts": records,
+        }
+    )
+    require(not failures, f"export: {failures}")
+
+
+def phase_transfer(fit_result: dict, workdir) -> None:
+    """The rest of single-card ``train`` at full width on the fit phase's
+    chips: ``fit_transfer`` from the fit's store for 1 epoch with
+    ``finetune=None`` (fresh heads) then ``"fc"``: the backbone parameters
+    equal the pretrained ``last`` bit for bit, the heads and the BatchNorm
+    running statistics moved; per train step 3 na2d_fwd_drop and 3
+    na2d_bwd_drop, per validation batch 3 na2d_fwd. Then ``lr_find`` over
+    20 steps: strictly rising learning rates, a suggestion or a recorded
+    divergence, the step's launches. Then a 1-epoch fit with
+    ``model_pruning``: each pruned parameter (2 or more dimensions, 32 or
+    more entries) holds at least int(0.2 n) zeros. Then a 1-epoch RAdam
+    fit: finite losses."""
+    from cultionet_tpu_torch.model import fit, fit_transfer
+    from cultionet_tpu_torch.train.fit import FINAL_NAMES
+    from cultionet_tpu_torch.train.lr_finder import lr_find
+    from cultionet_tpu_torch.train.prune import sparsity
+
+    root, norm, store = fit_result["root"], fit_result["norm"], fit_result["store"]
+    pretrained = torch.load(store / "last" / "model.pt", weights_only=True)
+    record = {"phase": "transfer"}
+    for finetune in (None, "fc"):
+        params = fit_params(
+            root, workdir / f"transfer_{finetune}", norm, epochs=1,
+            finetune=finetune,
+        )
+        params.pretrained_ckpt = store
+        zero_launches()
+        start = time.perf_counter()
+        result = fit_transfer(params)
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - start
+        launches = read_launches()
+        require(
+            launches == fit_launches(4, 1),
+            f"transfer {finetune}: launched {launches}",
+        )
+        got = result.state.model.state_dict()
+        params_names = dict(result.state.model.named_parameters())
+        heads_moved = stats_moved = False
+        for name, value in pretrained["params"].items():
+            final = any(p in FINAL_NAMES for p in name.split("."))
+            same = torch.equal(got[name].cpu(), value)
+            require(final or same, f"transfer {finetune}: {name} moved")
+            heads_moved |= final and not same
+        for name, value in pretrained["batch_stats"].items():
+            if "running_" in name and name not in params_names:
+                stats_moved |= not torch.equal(got[name].cpu(), value)
+        require(heads_moved and stats_moved,
+                f"transfer {finetune}: heads {heads_moved} stats {stats_moved}")
+        require(all(np.isfinite(r["loss"]) for r in result.history),
+                f"transfer {finetune}: {result.history}")
+        record[f"finetune_{finetune}"] = {
+            "seconds": seconds, "launches": launches,
+            "history": result.history,
+        }
+        del result
+
+    params = fit_params(root, workdir / "lr_find", norm, epochs=1)
+    zero_launches()
+    start = time.perf_counter()
+    sweep = lr_find(params, num_steps=20)
+    torch.cuda.synchronize()
+    sweep_s = time.perf_counter() - start
+    launches = read_launches()
+    steps = len(sweep.lrs)
+    require(
+        all(a < b for a, b in zip(sweep.lrs, sweep.lrs[1:]))
+        and (sweep.suggestion is not None or steps < 20)
+        and launches == fit_launches(steps, 0),
+        f"lr_find: {steps} steps, suggestion {sweep.suggestion}, "
+        f"launches {launches}",
+    )
+    record["lr_find"] = {
+        "steps": steps, "seconds": sweep_s, "suggestion": sweep.suggestion,
+        "lrs": sweep.lrs, "smoothed": sweep.losses, "launches": launches,
+    }
+
+    pruned = fit(fit_params(root, workdir / "pruned", norm, epochs=1,
+                            model_pruning=True))
+    counts = {}
+    for name, value in pruned.state.model.named_parameters():
+        if value.dim() >= 2 and value.numel() >= 32:
+            zeros = int((value == 0).sum())
+            require(zeros >= int(0.2 * value.numel()),
+                    f"pruning: {name} {zeros} zeros of {value.numel()}")
+            counts[name] = zeros
+    record["pruning"] = {
+        "sparsity": sparsity(dict(pruned.state.model.named_parameters())),
+        "pruned_tensors": len(counts),
+    }
+    del pruned
+
+    radam = fit(fit_params(root, workdir / "radam", norm, epochs=1,
+                           optimizer="RAdam"))
+    require(all(np.isfinite(r["loss"]) and np.isfinite(r["val_loss"])
+                for r in radam.history), f"RAdam: {radam.history}")
+    record["radam_history"] = radam.history
+    del radam
+    emit(record)
 
 
 def field_chip(size: int = 100, field: int = 20):
@@ -2330,6 +2679,60 @@ def write_cli_project(project) -> list:
     return fields
 
 
+def served_windows_raster(predictor, artifact, dataset) -> np.ndarray:
+    """The blended raster of ``dataset``'s window chips with ``predictor``'s
+    step replaced by the served artifact: each batch of scaled chips goes
+    back to the int16 wire format, padded to the artifact's batch."""
+    from cultionet_tpu_torch.export import load_predictor
+    from cultionet_tpu_torch.predict import BAND_NAMES
+
+    served = load_predictor(artifact)
+    size = served.batch_size
+    coords = torch.zeros(size, device="cuda")
+
+    def step(x):
+        wire = torch.zeros((size, *x.shape[1:]), dtype=torch.int16,
+                           device="cuda")
+        wire[: x.shape[0]] = torch.round(x * 10000.0).to(torch.int16)
+        outs = served.call_on_device(wire, coords, coords)
+        return {band: out[: x.shape[0]] for band, out in zip(BAND_NAMES, outs)}
+
+    predictor.predict_step = step
+    return predictor.predict_windows(dataset)[0]
+
+
+def partition_train(project, workdir, cli) -> dict:
+    """``train --spatial-partitions FILE --partition-name east --epochs 1``
+    on a copy of the project's chips and norm statistics: the GeoJSON names
+    two polygons, west over regions r00-r09 and east over r10-r19; 10
+    chips train (2 steps of 4) and 10 validate (3 batches)."""
+    import shutil
+
+    other = workdir / "cli_partitions"
+    shutil.copytree(project / "data", other / "data")
+    (other / "ckpt").mkdir(parents=True)
+    shutil.copy(project / "ckpt" / "last.norm.npz", other / "ckpt")
+
+    def box(x0, x1):
+        y0, y1 = 4099000.0, 4102000.0
+        return [[x0, y0], [x1, y0], [x1, y1], [x0, y1], [x0, y0]]
+
+    parts = workdir / "partitions.geojson"
+    parts.write_text(json.dumps({"type": "FeatureCollection", "features": [
+        {"type": "Feature", "properties": {"name": name},
+         "geometry": {"type": "Polygon", "coordinates": [box(x0, x1)]}}
+        for name, x0, x1 in (("west", 599000.0, 619500.0),
+                             ("east", 619500.0, 640000.0))
+    ]}))
+    zero_launches()
+    cli(["train", "-p", str(other), "--spatial-partitions", str(parts),
+         "--partition-name", "east", "--epochs", "1"])
+    launches = read_launches()
+    require(launches == fit_launches(2, 3),
+            f"cli train with partitions launched {launches}")
+    return launches
+
+
 def phase_cli(workdir) -> None:
     """The port's command line in-process (``scripts/cli.py::main``) at the
     CLI defaults (hidden 64, natten, dropout 0.2, augment_prob 0.5, batch 4,
@@ -2341,7 +2744,11 @@ def phase_cli(workdir) -> None:
     ``python -m cultionet_tpu_torch version`` in a subprocess. The loader
     alone over the 2-epoch fit's loading at augment_prob 0.0 and 0.5, in
     turns; the CLI's raster against ``predict_to_raster`` through the API
-    on the same checkpoint and chips."""
+    on the same checkpoint and chips. Then ``train-transfer`` for 1 epoch;
+    ``export`` (bf16, batch 8, 140-px windows) and the region's window
+    chips served through the artifact, the blended raster within 2e-2 of
+    ``predict``'s; and ``train --spatial-partitions FILE --partition-name
+    east`` on a copy of the chips."""
     from cultionet_tpu_torch import __version__
     from cultionet_tpu_torch.augment import label_segments
     from cultionet_tpu_torch.data.datasets import ChipDataset
@@ -2495,7 +2902,39 @@ def phase_cli(workdir) -> None:
         "cli predict differs from predict_to_raster: "
         f"{int((api_bands != bands).sum())} values",
     )
+
+    # train-transfer from the trained store into its own, 1 epoch.
+    zero_launches()
+    start = time.perf_counter()
+    cli(["train-transfer", *p, "--epochs", "1"])
+    torch.cuda.synchronize()
+    transfer_s = time.perf_counter() - start
+    transfer_launches = read_launches()
+    require(
+        transfer_launches == fit_launches(4, 1)
+        and (project / "ckpt" / "last_transfer_store" / "last" / "model.pt")
+        .exists(),
+        f"cli train-transfer launched {transfer_launches}",
+    )
+
+    # export the trained checkpoint (bf16, batch 8, 140-px windows) and
+    # serve the region's window chips through it: the blended raster
+    # within the bf16 gate of ``predict``'s.
+    start = time.perf_counter()
+    cli(["export", *p, "--chip-size", "140"])
+    export_s = time.perf_counter() - start
+    served = served_windows_raster(
+        predictor, project / "ckpt" / "serve_best.cnx",
+        ChipDataset(project / "data" / "predict", pattern="data_predict*"),
+    )
+    served_err = float(
+        np.abs(np.moveaxis(served, -1, 0) - bands / 10000.0).max()
+    )
+    require(served_err <= 2e-2, f"cli export: served vs predict {served_err}")
     del model, predictor
+
+    # train with a user partition file: validate on the "east" regions.
+    partition_launches = partition_train(project, workdir, cli)
 
     version = subprocess.run(
         [sys.executable, "-m", "cultionet_tpu_torch", "version"],
@@ -2538,6 +2977,11 @@ def phase_cli(workdir) -> None:
             "windows_per_s": 25 / windows_s,
             "predict_to_raster_s": to_raster_s,
             "raster_write_s": to_raster_s - windows_s,
+            "train_transfer_1_epoch_s": transfer_s,
+            "train_transfer_launches": transfer_launches,
+            "export_s": export_s,
+            "served_vs_predict_max_abs": served_err,
+            "partition_train_launches": partition_launches,
             "history": history,
             "launches": runs[2][1],
             "resumed_launches": runs[3][1],
@@ -2610,6 +3054,8 @@ def main() -> int:
         fit_result = phase_fit(conv_steps_per_s, Path(tmp))
         phase_fit_augment(fit_result)
         phase_predict_raster(fit_result)
+        phase_export(fit_result, Path(tmp))
+        phase_transfer(fit_result, Path(tmp))
         phase_cli(Path(tmp))
 
     fwd_src = "cultionet_tpu_torch/ops/csrc/na2d_fwd.cu"

@@ -4,15 +4,16 @@ cultionet_tpu/data/datasets.py::ChipDataset).
 A file-list dataset over ``root/processed/data*.npz`` chips: 1/10000
 scaling and clipping, the optional Dynamic World log transform, z-score
 normalization, per-chip lat/lon centroids, a random or spatially balanced
-train/validation split, spatial k-fold iteration and a parallel dimension
-audit, and host augmentation: with probability ``augment_prob`` a
+train/validation split, a split or folds by named partition polygons
+from a user file (GeoJSON or GeoPackage), spatial k-fold iteration and a
+parallel dimension audit, and host augmentation: with probability ``augment_prob`` a
 labelled chip goes through one augmenter drawn from ``augmentations``
 (``augment/``), from the dataset's numpy generator in the JAX package's
 order. All host work runs on CPU numpy arrays and tensors; a chip leaves as
 a ``Batch`` of CPU tensors.
 
-Not ported (each raises ``NotImplementedError``): user partition files
-(``split_by_partition``) and reference joblib ``.pt`` chips.
+Not ported (raises ``NotImplementedError``): reference joblib ``.pt``
+chips.
 """
 
 import typing as T
@@ -183,10 +184,83 @@ class ChipDataset:
         val_ds.augment_prob = 0.0  # no augmentation on validation
         return self._subset(train_files), val_ds
 
-    def split_by_partition(self, *args, **kwargs):
-        raise NotImplementedError(
-            "user partition files (split_by_partition) are not ported yet"
-        )
+    # -- named spatial partitions ----------------------------------------
+
+    def get_spatial_partitions(
+        self, spatial_partitions: T.Union[str, Path]
+    ) -> T.List[T.Tuple[T.Any, dict]]:
+        """Load a user partition polygon file (GeoPackage or GeoJSON) as
+        (exterior ring, attributes) features. The polygons must share the
+        chips' CRS (nothing reprojects them)."""
+        from .vector import read_feature_table
+
+        self.spatial_partitions = read_feature_table(spatial_partitions)
+        return self.spatial_partitions
+
+    def query_partition_by_name(
+        self, partition_column: str, partition_name: str
+    ) -> T.List[int]:
+        """Indices of the chips whose centroid lies inside the partition
+        polygon(s) whose ``partition_column`` is ``partition_name``."""
+        from .vector import points_in_ring
+
+        if getattr(self, "spatial_partitions", None) is None:
+            raise ValueError("call get_spatial_partitions(file) first")
+        rings = [
+            ring
+            for ring, props in self.spatial_partitions
+            if str(props.get(partition_column)) == str(partition_name)
+        ]
+        if not rings:
+            return []
+        points = self.centroids()
+        inside = np.zeros(len(points), dtype=bool)
+        for ring in rings:
+            inside |= points_in_ring(points, ring)
+        return np.nonzero(inside)[0].tolist()
+
+    def split_by_partition(
+        self,
+        spatial_partitions: T.Union[str, Path],
+        partition_name: str,
+        partition_column: str = "name",
+    ) -> T.Tuple["ChipDataset", "ChipDataset"]:
+        """Train/validation split by a named partition: the chips inside
+        its polygon(s) validate, the rest train. Raises ``ValueError`` when
+        the partition holds no chip."""
+        self.get_spatial_partitions(spatial_partitions)
+        val_idx = self.query_partition_by_name(partition_column, partition_name)
+        if not val_idx:
+            raise ValueError(f"Partition {partition_name!r} contains no chips")
+        val_mask = np.zeros(len(self.files), dtype=bool)
+        val_mask[val_idx] = True
+        train_files = [f for f, v in zip(self.files, val_mask) if not v]
+        val_files = [f for f, v in zip(self.files, val_mask) if v]
+        val_ds = self._subset(val_files)
+        val_ds.augment_prob = 0.0
+        return self._subset(train_files), val_ds
+
+    def partition_kfoldcv_iter(
+        self,
+        spatial_partitions: T.Union[str, Path],
+        partition_column: str = "name",
+    ) -> T.Iterator[T.Tuple[str, "ChipDataset", "ChipDataset"]]:
+        """Yield (name, train_ds, val_ds), one fold per named partition in
+        file order; a partition holding no chip is skipped."""
+        self.get_spatial_partitions(spatial_partitions)
+        names = []
+        for _, props in self.spatial_partitions:
+            name = props.get(partition_column)
+            if name is not None and name not in names:
+                names.append(name)
+        for name in names:
+            try:
+                train_ds, val_ds = self.split_by_partition(
+                    spatial_partitions, name, partition_column
+                )
+            except ValueError:
+                continue
+            yield str(name), train_ds, val_ds
 
     def spatial_kfoldcv_iter(
         self, k: int, rng: T.Optional[np.random.Generator] = None

@@ -244,6 +244,25 @@ def _strip_gpkg_header(blob: bytes) -> bytes:
     return blob[8 + envelope_len :]
 
 
+def _feature_table(cur: sqlite3.Cursor, path) -> T.Tuple[str, str, T.List[str]]:
+    """The first feature table of a GeoPackage: its name, its geometry
+    column and all its columns."""
+    tables = cur.execute(
+        "SELECT table_name FROM gpkg_contents WHERE data_type='features'"
+    ).fetchall()
+    if not tables:
+        raise ValueError(f"No feature tables in {path}")
+    table = tables[0][0]
+    (geom_col,) = cur.execute(
+        "SELECT column_name FROM gpkg_geometry_columns WHERE table_name=?",
+        (table,),
+    ).fetchone()
+    columns = [
+        row[1] for row in cur.execute(f"PRAGMA table_info('{table}')").fetchall()
+    ]
+    return table, geom_col, columns
+
+
 def read_gpkg(
     path: T.Union[str, Path],
     class_column: T.Optional[str] = None,
@@ -254,21 +273,7 @@ def read_gpkg(
     con = sqlite3.connect(str(path))
     try:
         cur = con.cursor()
-        tables = cur.execute(
-            "SELECT table_name FROM gpkg_contents WHERE data_type='features'"
-        ).fetchall()
-        if not tables:
-            raise ValueError(f"No feature tables in {path}")
-        table = tables[0][0]
-        (geom_col,) = cur.execute(
-            "SELECT column_name FROM gpkg_geometry_columns "
-            "WHERE table_name=?",
-            (table,),
-        ).fetchone()
-        columns = [
-            row[1]
-            for row in cur.execute(f"PRAGMA table_info('{table}')").fetchall()
-        ]
+        table, geom_col, columns = _feature_table(cur, path)
         if class_column is None:
             class_column = next(
                 (c for c in columns if c.lower() in _CLASS_KEYS_LOWER), None
@@ -290,6 +295,49 @@ def read_gpkg(
             for ring in _parse_wkb_rings(_strip_gpkg_header(bytes(blob))):
                 shapes.append((ring, value))
         return shapes
+    finally:
+        con.close()
+
+
+def read_feature_table(
+    path: T.Union[str, Path],
+) -> T.List[T.Tuple[Ring, dict]]:
+    """(exterior ring, attributes) pairs from a GeoJSON file (``.json``,
+    ``.geojson``) or a GeoPackage's first feature table: the
+    general-attribute variant of ``parse_geojson`` / ``read_gpkg``, for
+    named spatial partitions."""
+    path = Path(path)
+    if path.suffix.lower() in (".json", ".geojson"):
+        source = json.loads(path.read_text())
+        if source.get("type") == "FeatureCollection":
+            items = source.get("features", [])
+        elif source.get("type") == "Feature":
+            items = [source]
+        else:
+            items = [{"geometry": source, "properties": {}}]
+        features = []
+        for feature in items:
+            props = dict(feature.get("properties") or {})
+            for ring in _rings_from_geometry(feature.get("geometry") or {}):
+                features.append((ring, props))
+        return features
+
+    if not path.is_file():  # sqlite3 would create an empty database
+        raise FileNotFoundError(f"No partition file at {path}")
+    con = sqlite3.connect(str(path))
+    try:
+        cur = con.cursor()
+        table, geom_col, columns = _feature_table(cur, path)
+        attr_cols = [c for c in columns if c != geom_col]
+        select = ", ".join([f'"{c}"' for c in [geom_col, *attr_cols]])
+        features = []
+        for row in cur.execute(f'SELECT {select} FROM "{table}"'):
+            if row[0] is None:
+                continue
+            props = dict(zip(attr_cols, row[1:]))
+            for ring in _parse_wkb_rings(_strip_gpkg_header(bytes(row[0]))):
+                features.append((ring, props))
+        return features
     finally:
         con.close()
 

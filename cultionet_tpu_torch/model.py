@@ -1,6 +1,5 @@
-"""Public orchestration API: ``fit``, ``load_model`` and ``predict`` over
-a chip dataset (port of cultionet_tpu/model.py; ``fit_transfer`` is not
-ported yet)."""
+"""Public orchestration API: ``fit``, ``fit_transfer``, ``load_model`` and
+``predict`` over a chip dataset (port of cultionet_tpu/model.py)."""
 
 import typing as T
 from pathlib import Path
@@ -33,6 +32,23 @@ _NON_MODEL_KEYS = (
 def fit(params: CultionetParams, device="cuda") -> FitResult:
     """Train a model (``train/fit.py::fit``) on ``device``."""
     return _fit(params, device=device)
+
+
+def fit_transfer(params: CultionetParams, device="cuda") -> FitResult:
+    """Transfer learning from a pretrained checkpoint on ``device``.
+
+    ``params.ckpt_file`` names the NEW checkpoint (its own store); the
+    pretrained parameters and BatchNorm statistics come from the ``last``
+    checkpoint of ``params.pretrained_ckpt`` where set, else of the default
+    store ``last_store`` beside ``ckpt_file``. ``params.finetune`` picks
+    what trains: 'all' everything; 'fc' only the final heads; None only the
+    final heads, re-initialized.
+    """
+    pretrained_dir = getattr(params, "pretrained_ckpt", None)
+    if pretrained_dir is None:
+        pretrained_dir = Path(params.ckpt_file).parent / "last_store"
+    state, _ = load_model(pretrained_dir, which="last", device=device)
+    return _fit(params, pretrained_state=state, device=device)
 
 
 def _choose_checkpoint(

@@ -13,9 +13,16 @@ start), so each query always attends to exactly ``k*k`` keys; with dilation
 - ``dropout_keep_mask``: the attention-dropout mask of the CUDA kernels,
   bit for bit, as a tensor the plain version applies through its
   ``weights_fn`` hook.
-- ``na2d``: the op the model calls. A CUDA tensor goes to the hand-written
-  kernels (unless ``ops.flags.set_cuda_natten(False)`` was called), a CPU
-  tensor to the plain version.
+- ``na2d_inference``: the forward without dropout as the registered torch
+  op ``cultionet_tpu_torch::na2d``: on a CUDA tensor it launches the
+  hand-written kernel ``na2d_fwd``, on a CPU tensor it computes the plain
+  version. Its fake implementation gives the output's shape and dtype, so
+  ``torch.export`` traces it into a serving program that calls the kernel.
+- ``na2d``: the op the model calls. Where no gradient is needed and no
+  dropout is asked for, ``na2d_inference``; else a CUDA tensor goes to the
+  differentiable kernels and a CPU tensor to the plain version. On a CUDA
+  tensor, after ``ops.flags.set_cuda_natten(False)``, always the plain
+  version.
 
 All take ``q, k, v`` shaped ``(B, H, W, num_heads, head_dim)`` and return the
 same shape.
@@ -229,6 +236,33 @@ def neighborhood_attention_2d(
     return out
 
 
+@torch.library.custom_op("cultionet_tpu_torch::na2d", mutates_args=())
+def na2d_inference(
+    q: Tensor, k: Tensor, v: Tensor, kernel_size: int, dilation: int
+) -> Tensor:
+    """Neighborhood attention without dropout or gradient, as a registered
+    op: the plain version on the CPU (this body), the kernel ``na2d_fwd``
+    on a CUDA tensor. Returns a new contiguous tensor."""
+    return neighborhood_attention_2d(q, k, v, kernel_size, dilation).contiguous()
+
+
+@na2d_inference.register_kernel("cuda")
+def _na2d_inference_cuda(q, k, v, kernel_size, dilation):
+    from .natten_cuda import launch_na2d_fwd
+
+    return launch_na2d_fwd(q, k, v, kernel_size, dilation)
+
+
+@na2d_inference.register_fake
+def _na2d_inference_fake(q, k, v, kernel_size, dilation):
+    return torch.empty(q.shape, dtype=q.dtype, device=q.device)
+
+
+def grad_needed(*tensors: Tensor) -> bool:
+    """Whether autograd would record an op on ``tensors``."""
+    return torch.is_grad_enabled() and any(t.requires_grad for t in tensors)
+
+
 def na2d(
     q: Tensor,
     k: Tensor,
@@ -242,16 +276,25 @@ def na2d(
     inverted dropout on the attention weights when ``attn_drop > 0``
     (keep bits from ``seed``, a one-element int32 tensor on q's device).
 
-    CUDA: the hand-written kernels (``natten_cuda.na2d_cuda``), or the plain
-    version after an explicit ``set_cuda_natten(False)``. CPU: the plain
-    version, given ``dropout_keep_mask(seed, ...)`` through its hook.
+    Inference (no dropout, no gradient): the registered op
+    ``na2d_inference``, which an exported program keeps. Training on CUDA:
+    the hand-written kernels (``natten_cuda.na2d_cuda``). The plain
+    version on the CPU (given ``dropout_keep_mask(seed, ...)`` through its
+    hook), and on CUDA after an explicit ``set_cuda_natten(False)``.
     """
-    if q.device.type == "cuda" and cuda_natten_enabled():
+    if q.device.type not in ("cpu", "cuda"):
+        raise ValueError(f"na2d: unsupported device {q.device}")
+    plain_only = q.device.type == "cuda" and not cuda_natten_enabled()
+    inference = attn_drop == 0 and not grad_needed(q, k, v)
+    if not plain_only and (inference or q.device.type == "cuda"):
+        check_spatial(q.shape[1], q.shape[2], kernel_size, dilation)
+        if kernel_size == 1:
+            return v  # a one-key softmax is 1, without dropout (as Pallas)
+        if inference:
+            return na2d_inference(q, k, v, kernel_size, dilation)
         from .natten_cuda import na2d_cuda
 
         return na2d_cuda(q, k, v, kernel_size, dilation, attn_drop, seed)
-    if q.device.type not in ("cpu", "cuda"):
-        raise ValueError(f"na2d: unsupported device {q.device}")
     weights_fn = None
     if attn_drop > 0:
         if seed is None:

@@ -9,14 +9,22 @@ side by side along C. Every pixel attends over its own S time steps only.
 
 - ``temporal_attention_reference``: the plain version, the CPU path and the
   oracle of the CUDA kernels in ``temporal_cuda.py``.
-- ``temporal_attention``: the op the model calls. A CUDA tensor goes to the
-  hand-written kernels (unless ``ops.flags.set_cuda_temporal(False)`` was
-  called), a CPU tensor to the plain version.
+- ``temporal_inference``: the forward as the registered torch op
+  ``cultionet_tpu_torch::temporal_attention``: on a CUDA tensor it
+  launches the hand-written kernel ``temporal_fwd``, on a CPU tensor it
+  computes the plain version; ``torch.export`` keeps it in a serving
+  program.
+- ``temporal_attention``: the op the model calls. Where no gradient is
+  needed, ``temporal_inference``; else a CUDA tensor goes to the
+  differentiable kernels and a CPU tensor to the plain version. On a CUDA
+  tensor, after ``ops.flags.set_cuda_temporal(False)``, always the plain
+  version.
 """
 
 import torch
 
 from .flags import cuda_temporal_enabled
+from .natten import grad_needed
 
 Tensor = torch.Tensor
 
@@ -51,19 +59,46 @@ def temporal_attention_reference(
     return out.reshape(n, tq, c).to(q.dtype)
 
 
+@torch.library.custom_op(
+    "cultionet_tpu_torch::temporal_attention", mutates_args=()
+)
+def temporal_inference(q: Tensor, k: Tensor, v: Tensor, num_heads: int) -> Tensor:
+    """Temporal attention without gradient, as a registered op: the plain
+    version on the CPU (this body), the kernel ``temporal_fwd`` on a CUDA
+    tensor. Returns a new contiguous (N, Tq, C) tensor in q's dtype."""
+    return temporal_attention_reference(q, k, v, num_heads).contiguous()
+
+
+@temporal_inference.register_kernel("cuda")
+def _temporal_inference_cuda(q, k, v, num_heads):
+    from .temporal_cuda import launch_temporal_fwd
+
+    return launch_temporal_fwd(q, k, v, num_heads)
+
+
+@temporal_inference.register_fake
+def _temporal_inference_fake(q, k, v, num_heads):
+    check_heads(q.shape[2], num_heads)
+    return torch.empty(q.shape, dtype=q.dtype, device=q.device)
+
+
 def temporal_attention(
     q: Tensor, k: Tensor, v: Tensor, num_heads: int
 ) -> Tensor:
     """Temporal attention on whatever device ``q`` lies on.
 
-    CUDA: the hand-written kernels (``temporal_cuda.temporal_attention_cuda``),
-    or the plain version after an explicit ``set_cuda_temporal(False)``.
-    CPU: the plain version.
+    Inference (no gradient): the registered op ``temporal_inference``,
+    which an exported program keeps. Training on CUDA: the hand-written
+    kernels (``temporal_cuda.temporal_attention_cuda``). The plain version
+    on the CPU, and on CUDA after an explicit ``set_cuda_temporal(False)``.
     """
-    if q.device.type == "cuda" and cuda_temporal_enabled():
+    if q.device.type not in ("cpu", "cuda"):
+        raise ValueError(f"temporal attention: unsupported device {q.device}")
+    plain_only = q.device.type == "cuda" and not cuda_temporal_enabled()
+    if not plain_only and not grad_needed(q, k, v):
+        return temporal_inference(q, k, v, num_heads)
+    if q.device.type == "cuda" and not plain_only:
         from .temporal_cuda import temporal_attention_cuda
 
         return temporal_attention_cuda(q, k, v, num_heads)
-    if q.device.type not in ("cpu", "cuda"):
-        raise ValueError(f"temporal attention: unsupported device {q.device}")
     return temporal_attention_reference(q, k, v, num_heads)

@@ -2,13 +2,16 @@
 ``python -m cultionet_tpu_torch <command>``, or ``cultionet-tpu-torch``.
 
 The subcommands, flags and defaults are the JAX package's: ``create`` burns
-each region's polygons into train chips, ``train`` fits the model on them,
-``create-predict`` cuts a scene into window chips and ``predict`` writes
-their blended prediction as a 3-band GeoTIFF; ``predict-transfer``,
-``skfoldcv`` and ``version`` as well. The argument tree comes from
-``args.json`` (the JAX ``args.yml`` as JSON, so parsing needs no PyYAML);
-every invocation is archived as JSON under ``<project>/commands/`` and the
-class metadata persists to ``data/classes.info``.
+each region's polygons into train chips, ``train`` fits the model on them
+(``train-transfer`` from a trained checkpoint), ``create-predict`` cuts a
+scene into window chips and ``predict`` writes their blended prediction as
+a 3-band GeoTIFF; ``export`` writes a serving artifact
+(``export.py``); ``predict-transfer``, ``skfoldcv`` (spatial folds, or one
+fold per named polygon of a partition file) and ``version`` as well. The
+argument tree comes from ``args.json`` (the JAX ``args.yml`` as JSON, so
+parsing needs no PyYAML); every invocation is archived as JSON under
+``<project>/commands/`` and the class metadata persists to
+``data/classes.info``.
 
 A region is ``<project>/time_series_vars/<region>/`` holding ``scene.npz``
 (``x`` (T, H, W, C), ``bounds`` (4,), ``cell_res`` (), optionally ``crs``)
@@ -17,11 +20,11 @@ or per-variable GeoTIFFs, and its polygons (``data/vector.py``).
 ``main(argv, device="cuda")`` runs on the card; the tests pass
 ``device="cpu"``. Without a card and with ``device="cuda"`` it raises.
 
-Not ported yet (each raises ``NotImplementedError``): ``train-transfer``
-(``fit_transfer``, ROADMAP 1.5), ``import-torch`` and ``export`` (ROADMAP
-1.9), more than one predict device, and user partition files for
-``skfoldcv``; ``train`` refuses the options ``fit`` does not run yet
-(``train/fit.py::check_ported``).
+Deliberate differences: ``export --platform`` takes ``cuda`` or ``cpu``
+(the artifact runs on the device it was exported on), not JAX's StableHLO
+platforms. Not ported yet (each raises ``NotImplementedError``):
+``import-torch`` and more than one predict device; ``train`` refuses the
+options ``fit`` does not run yet (``train/fit.py::check_ported``).
 """
 
 import argparse
@@ -76,12 +79,15 @@ SUBCOMMAND_GROUPS = {
     CLISteps.VERSION: [],
 }
 
-# Subcommands that wait for a later part of the port, with its ROADMAP item.
+# Subcommands that wait for a later part of the port, with the reason.
 NOT_PORTED = {
-    CLISteps.TRAIN_TRANSFER: "fit_transfer (ROADMAP 1.5)",
-    CLISteps.IMPORT_TORCH: "Lightning checkpoint import (ROADMAP 1.9)",
-    CLISteps.EXPORT: "the serving export (ROADMAP 1.9)",
+    CLISteps.IMPORT_TORCH: (
+        "the Lightning checkpoint importer waits for the reference sources "
+        "(jgrss/cultionet) in the repository, the only thing it could be "
+        "tested against (ROADMAP 1.9)"
+    ),
 }
+EXPORT_PLATFORMS = ("cuda", "cpu")
 
 
 def build_parser() -> argparse.ArgumentParser:
@@ -560,10 +566,18 @@ def _norm_values(
     return norm
 
 
-def train_model(args: argparse.Namespace, argv=None, device="cuda") -> None:
+def train_model(
+    args: argparse.Namespace, argv=None, transfer: bool = False, device="cuda"
+) -> None:
+    """Fit the model on the project's train chips; with ``transfer`` from
+    the pretrained ``ckpt/last_store`` into ``last_transfer.ckpt``'s own
+    store (``model.py::fit_transfer``)."""
     from .. import model as api
 
-    ppaths = setup_paths(args.project_path, ckpt_name=ModelNames.CKPT_NAME)
+    ckpt_name = (
+        ModelNames.CKPT_TRANSFER_NAME if transfer else ModelNames.CKPT_NAME
+    )
+    ppaths = setup_paths(args.project_path, ckpt_name=ckpt_name)
     log_command(ppaths, args, argv)
 
     dataset = ChipDataset(
@@ -596,13 +610,14 @@ def train_model(args: argparse.Namespace, argv=None, device="cuda") -> None:
     )
 
     params = _build_params(args, ppaths, dataset)
+    run = api.fit_transfer if transfer else api.fit
     if args.profiler:
         from ..utils.profiling import profile_trace
 
         with profile_trace(args.profiler):
-            result = api.fit(params, device=device)
+            result = run(params, device=device)
     else:
-        result = api.fit(params, device=device)
+        result = run(params, device=device)
     logger.info(
         f"Training finished: best val_score={result.best_score:.4f} "
         f"over {len(result.history)} epochs"
@@ -660,27 +675,71 @@ def predict_image(
     return written
 
 
+def export_model(args: argparse.Namespace, argv=None, device="cuda") -> Path:
+    """Export the trained model (``ckpt/last_store``) as a serving artifact
+    (``export.py``) for ``--platform`` (``cuda`` or ``cpu``; default the
+    command's device)."""
+    from ..export import export_predictor
+
+    if args.platform:
+        if len(args.platform) != 1 or args.platform[0] not in EXPORT_PLATFORMS:
+            raise ValueError(
+                f"--platform {' '.join(args.platform)}: the port exports for "
+                f"one of {', '.join(EXPORT_PLATFORMS)} (the artifact runs on "
+                "the device it was exported on)"
+            )
+        device = args.platform[0]
+    ppaths = setup_paths(args.project_path)
+    log_command(ppaths, args, argv)
+
+    stem = Path(ppaths.ckpt_file).stem
+    ckpt_dir = Path(ppaths.ckpt_file).parent / f"{stem}_store"
+    out_path = Path(
+        args.out_path
+        or Path(ppaths.ckpt_file).parent / f"serve_{args.which_ckpt}.cnx"
+    )
+    written = export_predictor(
+        ckpt_dir,
+        out_path,
+        batch_size=args.export_batch_size,
+        chip_size=args.chip_size,
+        precision=args.precision,
+        which=args.which_ckpt,
+        norm_file=Path(str(ppaths.norm_file) + ".npz"),
+        log_transform={"auto": None, "yes": True, "no": False}[
+            args.log_transform_mode
+        ],
+        allow_unnormalized=args.allow_unnormalized,
+        device=device,
+    )
+    logger.info(f"Wrote {written}")
+    return written
+
+
 def spatial_kfoldcv(args: argparse.Namespace, argv=None, device="cuda") -> None:
-    """Fit one model per spatial fold (``--k-folds``, or 4^``--splits``
-    quadtree cells), each validated on its held-out fold, and write the
-    folds' best scores to ``ckpt/skfoldcv.json``."""
+    """Fit one model per fold, each validated on its held-out fold, and
+    write the folds' best scores to ``ckpt/skfoldcv.json``. The folds are
+    the named polygons of a partition file (``--spatial-partitions FILE``,
+    names from ``--partition-column``), else spatial folds (``--k-folds``,
+    or 4^``--splits`` quadtree cells)."""
     from .. import model as api
 
     ppaths = setup_paths(args.project_path)
     log_command(ppaths, args, argv)
 
-    partition_file = args.spatial_partitions
-    if partition_file and partition_file != "spatial":
-        raise NotImplementedError(
-            "skfoldcv over user partition files is not ported yet "
-            "(ROADMAP 1.5)"
-        )
     dataset = ChipDataset(ppaths.train_path)
     dataset.norm_values = _norm_values(ppaths, dataset, args.batch_size)
-    folds = 4 ** int(args.splits) if args.splits > 0 else args.k_folds
+    partition_file = args.spatial_partitions
+    if partition_file and partition_file != "spatial":
+        fold_iter = dataset.partition_kfoldcv_iter(
+            partition_file, partition_column=args.partition_column
+        )
+    else:
+        folds = 4 ** int(args.splits) if args.splits > 0 else args.k_folds
+        fold_iter = dataset.spatial_kfoldcv_iter(folds)
 
     results = {}
-    for fold_name, train_ds, val_ds in dataset.spatial_kfoldcv_iter(folds):
+    for fold_name, train_ds, val_ds in fold_iter:
         params = _build_params(args, ppaths, train_ds)
         params.ckpt_file = ppaths.ckpt_path / f"{fold_name}.ckpt"
         params.test_dataset = val_ds
@@ -710,6 +769,10 @@ def main(argv: T.Optional[T.Sequence[str]] = None, device="cuda") -> None:
         create_predict(args, argv)
     elif args.command == CLISteps.TRAIN:
         train_model(args, argv, device=device)
+    elif args.command == CLISteps.TRAIN_TRANSFER:
+        train_model(args, argv, transfer=True, device=device)
+    elif args.command == CLISteps.EXPORT:
+        export_model(args, argv, device=device)
     elif args.command == CLISteps.PREDICT:
         predict_image(args, argv, device=device)
     elif args.command == CLISteps.PREDICT_TRANSFER:

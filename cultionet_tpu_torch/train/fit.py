@@ -13,13 +13,18 @@ BatchNorm statistics re-estimated), and scores a test set into
 ``test.metrics``. Dropout draws only from a ``torch.Generator`` seeded with
 ``random_seed``. With ``augment_prob > 0`` the train split's chips go
 through host augmentation (``augment/``) in the loader's thread; the
-validation split never does.
+validation split never does. A user partition file
+(``spatial_partitions`` with ``partition_name``) validates on the chips
+inside the named polygons. ``auto_lr_find`` runs a learning-rate sweep
+(``lr_finder.py``) instead of training; ``model_pruning`` zeroes the
+smallest weights after the epochs (``prune.py``), before the weight
+averaging, as the JAX loop does. ``pretrained_state`` with ``finetune``
+is transfer learning (``model.py::fit_transfer``).
 
-Not ported yet (each raises ``NotImplementedError`` in ``check_ported``):
-in-step augmentation, the chipstore and device-resident paths
-(``use_chipstore``), more than one device or process, FSDP,
-``auto_lr_find``, ``model_pruning``, user partition files, and the model
-options off the default path.
+Not ported yet (each raises ``NotImplementedError``, in ``check_ported``
+or ``model_from_kwargs``): in-step augmentation, the chipstore and
+device-resident paths (``use_chipstore``), more than one device or
+process, FSDP, and the model options off the default path.
 """
 
 import csv
@@ -38,8 +43,10 @@ from ..models import CultioNet
 from ..nn.dropout import dropout_rng
 from ..utils.device import resolve_device
 from .checkpoint import Checkpointer
+from .lr_finder import lr_find
 from .optim import build_momentum_schedule, build_optimizer, build_schedule
 from .precision import cast_floating, resolve_dtype
+from .prune import l1_unstructured_prune
 from .step import (
     TrainState,
     class_weights_from_counts,
@@ -83,11 +90,6 @@ def check_ported(params: CultionetParams) -> None:
         "fsdp": params.fsdp,
         "multi-process training": torch.distributed.is_available()
         and torch.distributed.is_initialized(),
-        "auto_lr_find": params.auto_lr_find,
-        "model_pruning": params.model_pruning,
-        "user partition files (spatial_partitions other than 'spatial')": (
-            params.spatial_partitions not in (None, "spatial")
-        ),
     }
     refused = [name for name, cut in cuts.items() if cut]
     if refused:
@@ -247,12 +249,16 @@ def _load_pretrained(
     finetune: T.Optional[str],
 ) -> None:
     """Load pretrained parameters and buffers into ``model``; with
-    ``finetune=None`` its final heads keep their fresh initialization."""
+    ``finetune=None`` the parameters of its final heads keep their fresh
+    initialization (the BatchNorm statistics are all pretrained, as in the
+    JAX loop)."""
     if isinstance(pretrained_state, TrainState):
         pretrained_state = pretrained_state.model.state_dict()
-    fresh = model.state_dict()
+    fresh = dict(model.named_parameters())
     merged = {
-        name: fresh[name] if finetune is None and _is_final(name) else value
+        name: fresh[name].detach()
+        if finetune is None and name in fresh and _is_final(name)
+        else value
         for name, value in pretrained_state.items()
     }
     model.load_state_dict(merged, strict=True)
@@ -281,10 +287,39 @@ def fit(
     if params.in_channels is None:
         params.update_channels(dataset)
 
-    train_ds, val_ds = dataset.split_train_val(
-        val_frac=params.val_frac,
-        spatial_balance=params.spatial_partitions is not None,
-    )
+    if params.auto_lr_find:
+        # A learning-rate sweep instead of training.
+        sweep = lr_find(params, device=device)
+        return FitResult(
+            state=None,
+            model=build_model(params),
+            history=[
+                {"lr": lr, "loss": loss}
+                for lr, loss in zip(sweep.lrs, sweep.losses)
+            ],
+            best_score=(
+                sweep.suggestion if sweep.suggestion is not None else -1.0
+            ),
+        )
+
+    partition_file = params.spatial_partitions
+    if partition_file and partition_file != "spatial" and params.partition_name:
+        # User partition polygons: validate on the named partition. A
+        # missing file raises (JAX falls back to a spatial split).
+        if not Path(partition_file).exists():
+            raise FileNotFoundError(
+                f"spatial_partitions file {partition_file} does not exist"
+            )
+        train_ds, val_ds = dataset.split_by_partition(
+            partition_file,
+            params.partition_name,
+            partition_column=params.partition_column,
+        )
+    else:
+        train_ds, val_ds = dataset.split_train_val(
+            val_frac=params.val_frac,
+            spatial_balance=params.spatial_partitions is not None,
+        )
     train_ds.augment_prob = params.augment_prob
     train_loader = ChipLoader(
         train_ds,
@@ -447,6 +482,14 @@ def fit(
                     state, epoch, metrics=row, hyperparams=hyperparams,
                     generator=generator,
                 )
+
+    if params.model_pruning:
+        pruned = l1_unstructured_prune(
+            {n: p.detach().float() for n, p in state.model.named_parameters()}
+        )
+        with torch.no_grad():
+            for n, p in state.model.named_parameters():
+                p.copy_(pruned[n])
 
     if swa_params is not None:
         with torch.no_grad():

@@ -9,6 +9,7 @@ applies, in the optax order, gradient accumulation (``optax.MultiSteps``:
 the running mean of ``k`` mini-step gradients), clipping (global norm or
 per element) and the torch optimizer, with the learning rate and AdamW's
 beta1 set from their schedules at the update count before each update.
+RAdam is optax's rule (``OptaxRAdam``), which ``torch.optim.RAdam`` is not.
 """
 
 import dataclasses
@@ -150,11 +151,10 @@ def build_optimizer(
     b1_schedule: T.Optional[Schedule] = None,
 ) -> OptimizerSpec:
     """Adam (0.9, 0.999), AdamW (0.9 or ``b1_schedule``, 0.98) with
-    decoupled weight decay, or SGD (momentum 0.9, coupled decay), as the
-    JAX package builds them with optax. RAdam is not ported yet."""
-    if optimizer == "RAdam":
-        raise NotImplementedError("RAdam is not ported yet")
-    if optimizer not in ("Adam", "AdamW", "SGD"):
+    decoupled weight decay, RAdam (0.9, 0.99) with decoupled weight decay,
+    or SGD (momentum 0.9, coupled decay), as the JAX package builds them
+    with optax."""
+    if optimizer not in ("Adam", "AdamW", "RAdam", "SGD"):
         raise NameError("Choose 'Adam', 'AdamW', 'RAdam', or 'SGD'.")
     if gradient_clip_algorithm not in ("norm", "value"):
         raise ValueError(
@@ -171,6 +171,56 @@ def build_optimizer(
         max(1, accumulate_grad_batches),
         b1_schedule,
     )
+
+
+class OptaxRAdam(torch.optim.Optimizer):
+    """Rectified Adam as the JAX package chains it:
+    ``optax.scale_by_radam(b1, b2, eps)``, then
+    ``add_decayed_weights(weight_decay)``, then the learning rate.
+
+    ``torch.optim.RAdam`` differs: it adds ``eps`` to ``sqrt(v)`` before the
+    bias correction and rectifies where ``rho > 5``; optax divides the
+    bias-corrected first moment by ``sqrt(v_hat) + eps`` and rectifies
+    where ``rho >= 5``. A parameter without a gradient is skipped (a frozen
+    one: optax's mask zeroes its update)."""
+
+    B1 = 0.9
+    B2 = 0.99
+    RHO_THRESHOLD = 5.0
+
+    def __init__(self, params, lr: float, eps: float, weight_decay: float):
+        super().__init__(params, dict(lr=lr, eps=eps, weight_decay=weight_decay))
+
+    @torch.no_grad()
+    def step(self) -> None:
+        b1, b2 = self.B1, self.B2
+        for group in self.param_groups:
+            rho_inf = 2.0 / (1.0 - b2) - 1.0
+            for p in group["params"]:
+                if p.grad is None:
+                    continue
+                state = self.state[p]
+                if not state:
+                    state["step"] = torch.tensor(0.0)
+                    state["exp_avg"] = torch.zeros_like(p)
+                    state["exp_avg_sq"] = torch.zeros_like(p)
+                state["step"] += 1
+                t = int(state["step"])
+                mu, nu = state["exp_avg"], state["exp_avg_sq"]
+                mu.mul_(b1).add_(p.grad, alpha=1.0 - b1)
+                nu.mul_(b2).addcmul_(p.grad, p.grad, value=1.0 - b2)
+                b2t = b2**t
+                rho = rho_inf - 2.0 * t * b2t / (1.0 - b2t)
+                update = mu / (1.0 - b1**t)
+                if rho >= self.RHO_THRESHOLD:
+                    rect = math.sqrt(
+                        (rho - 4.0) * (rho - 2.0) * rho_inf
+                        / ((rho_inf - 4.0) * (rho_inf - 2.0) * rho)
+                    )
+                    nu_hat = nu / (1.0 - b2t)
+                    update = rect * update / (nu_hat.sqrt() + group["eps"])
+                update = update + group["weight_decay"] * p
+                p.sub_(group["lr"] * update)
 
 
 class Optimizer:
@@ -205,6 +255,10 @@ class Optimizer:
         elif spec.optimizer == "Adam":
             self.torch_optimizer = torch.optim.Adam(
                 params, lr=lr, betas=(0.9, 0.999), eps=spec.eps
+            )
+        elif spec.optimizer == "RAdam":
+            self.torch_optimizer = OptaxRAdam(
+                params, lr=lr, eps=spec.eps, weight_decay=spec.weight_decay
             )
         else:
             self.torch_optimizer = torch.optim.SGD(

@@ -19,9 +19,14 @@
   ``log_transform``; the port does. With the flag false (the golden
   checkpoint) the two agree through ``golden.tif``; with it true the port
   log-transforms the chips.
-- ``train-transfer``, ``import-torch`` and ``export`` raise
-  ``NotImplementedError``; ``main`` with ``device="cuda"`` and no card
-  raises.
+- ``train-transfer`` writes its own store from the trained one, training
+  only the heads at ``--finetune fc``; ``export --platform cpu`` writes an
+  artifact that serves as the checkpoint's eager serve program does, and
+  ``--platform tpu`` is refused by name; ``skfoldcv`` over a partition
+  file fits one fold per named polygon, and ``train --spatial-partitions
+  FILE --partition-name NAME`` validates on that polygon's chips.
+- ``import-torch`` raises ``NotImplementedError`` naming the missing
+  reference sources; ``main`` with ``device="cuda"`` and no card raises.
 """
 
 import dataclasses
@@ -370,16 +375,140 @@ def test_python_dash_m_entry_point():
         assert "device='cpu'" in out.stderr
 
 
-@pytest.mark.parametrize(
-    "command, item",
-    [("train-transfer", "1.5"), ("import-torch", "1.9"), ("export", "1.9")],
-)
+@pytest.mark.parametrize("command, item", [("import-torch", "1.9")])
 def test_refused_subcommands(tmp_path, command, item):
-    argv = [command, "-p", str(tmp_path)]
-    if command == "import-torch":
-        argv += ["--torch-ckpt", "x.ckpt"]
-    with pytest.raises(NotImplementedError, match=f"ROADMAP {item}"):
+    argv = [command, "-p", str(tmp_path), "--torch-ckpt", "x.ckpt"]
+    with pytest.raises(NotImplementedError, match=f"ROADMAP {item}") as err:
         cli.main(argv, device="cpu")
+    assert "reference sources" in str(err.value)
+
+
+@pytest.fixture(scope="module")
+def trained_project(tmp_path_factory):
+    """``create`` and a 1-epoch ``train`` (hidden 8) on 3 regions."""
+    project = make_project(tmp_path_factory.mktemp("trained"), num_regions=3)
+    cli.main(["create", "-p", str(project), "--num-workers", "1"], device="cpu")
+    cli.main(["train", "-p", str(project), *SMALL_TRAIN], device="cpu")
+    return project
+
+
+def _model_file(store, which="last"):
+    return torch.load(store / which / "model.pt", weights_only=True)["params"]
+
+
+def test_train_transfer_writes_its_store(trained_project, tmp_path):
+    project = shutil.copytree(trained_project, tmp_path / "project")
+    cli.main(
+        ["train-transfer", "-p", str(project), *SMALL_TRAIN, "--finetune",
+         "fc"],
+        device="cpu",
+    )
+    store = project / "ckpt" / "last_transfer_store"
+    for which in ("last", "best"):
+        assert (store / which / "model.pt").is_file()
+    pretrained = _model_file(project / "ckpt" / "last_store")
+    transferred = _model_file(store)
+    assert set(pretrained) == set(transferred)
+    heads = [n for n in pretrained
+             if any(p.startswith("final_") for p in n.split("."))]
+    assert heads
+    for name, value in pretrained.items():
+        if name in heads:
+            continue
+        assert torch.equal(transferred[name], value), name
+    assert any(not torch.equal(transferred[n], pretrained[n]) for n in heads)
+    archived = sorted((project / "commands").glob("train-transfer_*.json"))
+    assert len(archived) == 1
+
+
+def test_export_serves_like_the_checkpoint(trained_project, tmp_path):
+    """``export --platform cpu`` writes ``ckpt/serve_best.cnx``; served on a
+    wire batch it equals the eager serve program of the same checkpoint
+    and norm statistics."""
+    from cultionet_tpu_torch.export import build_serve_fn, load_predictor
+    from cultionet_tpu_torch.model import load_model
+    from cultionet_tpu_torch.utils.normalize import NormValues
+
+    project = shutil.copytree(trained_project, tmp_path / "project")
+    cli.main(
+        ["export", "-p", str(project), "--platform", "cpu", "--chip-size",
+         "32", "--export-batch-size", "2", "--precision", "fp32"],
+        device="cpu",
+    )
+    pred = load_predictor(project / "ckpt" / "serve_best.cnx")
+    assert pred.meta["platforms"] == ["cpu"] and pred.meta["kernels"] == "plain"
+    assert pred.meta["normalized"] is True and pred.meta["log_transform"] is False
+    assert pred.meta["ops"] == {"cultionet_tpu_torch::na2d": 3}
+    x = np.random.default_rng(0).integers(
+        0, 10000, size=(2, 6, 32, 32, 2), dtype=np.int16
+    )
+    lat = lon = np.zeros(2, np.float32)
+    served = pred(x, lat, lon)
+    _, model = load_model(project / "ckpt" / "last_store", "best", device="cpu")
+    norm = NormValues.from_file(project / "ckpt" / "last.norm.npz")
+    serve = build_serve_fn(
+        model, norm.dataset_mean, norm.dataset_std, precision="fp32"
+    )
+    with torch.no_grad():
+        direct = serve(torch.from_numpy(x), torch.zeros(2), torch.zeros(2))
+    for name, d in zip(("distance", "edge", "crop"), direct):
+        np.testing.assert_allclose(served[name], d.numpy(), atol=1e-5)
+
+
+def test_export_refuses_other_platforms(tmp_path):
+    with pytest.raises(ValueError, match="--platform tpu"):
+        cli.main(["export", "-p", str(tmp_path), "--platform", "tpu"],
+                 device="cpu")
+
+
+def test_partition_file_folds_and_split(tmp_path):
+    """A GeoJSON of two named polygons over the 4 regions (offsets 0, 100,
+    200, 300): ``skfoldcv`` fits the folds ``low`` and ``high``, each
+    validated (as its test set) on its two regions' chips; ``train
+    --spatial-partitions FILE --partition-name high`` trains on ``low``."""
+    project = make_project(tmp_path, num_regions=4)
+    cli.main(["create", "-p", str(project), "--num-workers", "1"], device="cpu")
+
+    def square(lo, hi):
+        return [[lo, lo], [hi, lo], [hi, hi], [lo, hi], [lo, lo]]
+
+    parts = tmp_path / "parts.geojson"
+    parts.write_text(json.dumps({"type": "FeatureCollection", "features": [
+        {"type": "Feature", "properties": {"name": name},
+         "geometry": {"type": "Polygon", "coordinates": [square(lo, hi)]}}
+        for name, lo, hi in (("low", -10, 180), ("high", 180, 400))
+    ]}))
+    cli.main(
+        ["skfoldcv", "-p", str(project), "--spatial-partitions", str(parts),
+         *SMALL_TRAIN],
+        device="cpu",
+    )
+    scores = json.loads((project / "ckpt" / "skfoldcv.json").read_text())
+    assert list(scores) == ["low", "high"]
+    assert all(np.isfinite(v) for v in scores.values())
+    for fold in scores:
+        assert (project / "ckpt" / f"{fold}_store" / "last" / "model.pt").is_file()
+
+    cli.main(
+        ["train", "-p", str(project), "--spatial-partitions", str(parts),
+         "--partition-name", "high", "--save-batch-val-metrics",
+         *SMALL_TRAIN],
+        device="cpu",
+    )
+    meta = json.loads(
+        (project / "ckpt" / "last_store" / "last.meta.json").read_text()
+    )
+    assert np.isfinite(meta["metrics"]["val_score"])
+    parquet = project / "ckpt" / "batch_metrics.parquet"
+    if parquet.exists():
+        import pandas as pd
+
+        validated = int(pd.read_parquet(parquet)["num_samples"].sum())
+    else:
+        lines = (project / "ckpt" / "batch_metrics.csv").read_text().splitlines()
+        column = lines[0].split(",").index("num_samples")
+        validated = sum(int(row.split(",")[column]) for row in lines[1:])
+    assert validated == 2  # the chips of regions 2 and 3
 
 
 @pytest.mark.parametrize("argv", [["version"], ["create", "-p", "unused"]])

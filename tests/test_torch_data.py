@@ -196,8 +196,6 @@ def test_loader_raises_the_dataset_error(tmp_path):
     ds.files.append(tmp_path / "processed" / "missing.npz")
     with pytest.raises(FileNotFoundError, match="missing"):
         list(ChipLoader(ds, batch_size=2))
-    with pytest.raises(NotImplementedError, match="partition"):
-        ds.split_by_partition("parts.gpkg", "a")
 
 
 def test_preload_cache_survives_augmented_epochs(tmp_path):

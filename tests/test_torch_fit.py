@@ -12,7 +12,8 @@ closely). The CLI-default step with NA is held to the JAX step in
 ``test_torch_train.py``; ``test_torch_fit_resume.py`` runs the loop with
 NA and dropout. Also: a fit at the CLI's default ``augment_prob`` 0.5
 ends with finite losses, and every option the port does not run yet
-raises ``NotImplementedError``.
+raises ``NotImplementedError`` (the learning-rate sweep, pruning and
+partition files run: ``test_torch_train_options.py``).
 """
 
 import csv
@@ -190,9 +191,6 @@ def test_fit_with_host_augmentation(tmp_path):
         dict(use_chipstore="hbm"),
         dict(devices=2),
         dict(fsdp=True),
-        dict(auto_lr_find=True),
-        dict(model_pruning=True),
-        dict(spatial_partitions="partitions.gpkg", partition_name="a"),
     ],
     ids=lambda o: "-".join(f"{k}={v}" for k, v in o.items()),
 )
