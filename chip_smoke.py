@@ -166,6 +166,37 @@ on the first phase that fails:
     defaults and launches) at augment_prob 0.0 and 0.5 in turns, and the
     loader alone over the 2-epoch fit's loading at augment_prob 0.0 and
     0.5 in turns, windows/s and the raster write's seconds.
+22. model_options (the model options off the CLI default, each at full
+    width with seeded weights): the CLI default (first and last: the
+    host's pace drifts over a run; rates are given over their mean; the
+    second run trains only) and O1
+    ``res`` + spatial_channel, O2 ``res`` + none, O3 ``resa`` +
+    spatial_channel, O4 pool_by_max, O5 batchnorm_first, O6 use_latlon
+    and O7 remat (O4-O7 with NATTEN). For each: 2 warm-up and 10 timed
+    "16-mixed" train steps on 4 x 100^2 x T12 x 3 (chips/s; device ms of
+    one profiled step and the idle share; for the default and O6 also
+    with cuDNN's TF32, PyTorch's default), one bf16 predict batch of 8 x
+    140^2 windows on a seeded model whose BatchNorm statistics 20
+    training-mode passes estimate (windows/s), the exact NA launches
+    (none for O1-O3; per step 3 na2d_fwd_drop and 3 na2d_bwd_drop, 6
+    and 3 under remat,
+    whose recompute runs the forward kernel again; 3 na2d_fwd a predict
+    batch), the predict forward with the kernels against
+    ``set_cuda_natten(False)`` (fp32 <= 1e-4; bf16 within 2e-2 of the
+    fp32 plain forward beyond the bf16 plain forward's own distance from
+    it) and an fp32 dropout-0
+    step at batch 1 (1 x 44^2) on the card against the CPU (the limits of
+    train_parity). O7 also: the remat step against the plain step in
+    fp32 at dropout 0.2 from one generator seed with cuDNN's
+    deterministic algorithms (loss, gradients and running statistics
+    within 1e-5, the generator's state equal), and the peak memory of a
+    step with and without remat at batch 4 and 16. O6 also: a bf16
+    artifact of batch 8 x 140^2 through ``export_state``, served in
+    process equal (0.0) to the eager serve program, two coordinate
+    batches giving different outputs. Then ``train --pool-by-max
+    --batchnorm-first --use-latlon --epochs 1`` and ``predict`` on a copy
+    of the cli phase's project: the launches of a 1-epoch ``fit``, 12
+    na2d_fwd, the raster written. Each configuration's seconds.
 
 Kernel times (``ms``, ``library_ms``) are device times: ``device_ms``
 queues 20 calls behind a sleep kernel so the card runs them back to back
@@ -174,7 +205,7 @@ and the host's dispatch is hidden; ``call_ms`` (NA kernels) and
 dispatch included where the card is faster than the host.
 
 Kernel launch counts are zeroed just before each path (8, 10, 12, 13,
-16-18, 20, 21; the serving process of 19 zeroes its own) and read just
+16-18, 20-22; the serving process of 19 zeroes its own) and read just
 after. Then the kernels line (seven kernels), and last
 ``{"ok": true, "device": {...}}``. TF32 is off for matmuls and
 convolutions throughout, so fp32 comparisons hold fp32 arithmetic.
@@ -2688,14 +2719,19 @@ def served_windows_raster(predictor, artifact, dataset) -> np.ndarray:
 
     served = load_predictor(artifact)
     size = served.batch_size
-    coords = torch.zeros(size, device="cuda")
 
-    def step(x):
+    def padded(values, n):
+        out = torch.zeros(size, device="cuda")
+        out[:n] = torch.as_tensor(values, device="cuda")
+        return out
+
+    def step(x, lat, lon):
+        n = x.shape[0]
         wire = torch.zeros((size, *x.shape[1:]), dtype=torch.int16,
                            device="cuda")
-        wire[: x.shape[0]] = torch.round(x * 10000.0).to(torch.int16)
-        outs = served.call_on_device(wire, coords, coords)
-        return {band: out[: x.shape[0]] for band, out in zip(BAND_NAMES, outs)}
+        wire[:n] = torch.round(x * 10000.0).to(torch.int16)
+        outs = served.call_on_device(wire, padded(lat, n), padded(lon, n))
+        return {band: out[:n] for band, out in zip(BAND_NAMES, outs)}
 
     predictor.predict_step = step
     return predictor.predict_windows(dataset)[0]
@@ -2991,6 +3027,503 @@ def phase_cli(workdir) -> None:
     )
 
 
+OPTION_CONFIGS = [  # (label, model options over the CLI default)
+    ("default", {}),
+    ("O1", dict(res_block_type="res", attention_weights="spatial_channel")),
+    ("O2", dict(res_block_type="res", attention_weights=None)),
+    ("O3", dict(attention_weights="spatial_channel")),
+    ("O4", dict(pool_by_max=True)),
+    ("O5", dict(batchnorm_first=True)),
+    ("O6", dict(use_latlon=True)),
+    ("O7", dict(remat=True)),
+    ("default_end", {}),  # the default again: host pace drifts over a run
+]
+OPTION_WARMUP = 2
+OPTION_STEPS = 10
+OPTION_COORDS = (  # (lat, lon) of 8 windows, and a second batch of them
+    (np.linspace(-60.0, 60.0, 8), np.linspace(-150.0, 150.0, 8)),
+    (np.linspace(10.0, 50.0, 8), np.linspace(-10.0, 30.0, 8)),
+)
+
+
+def option_model(options: dict, dropout: float = 0.2, seed: int = 0):
+    """The CLI-default model at full width with ``options`` over it, its
+    weights drawn from ``seed``."""
+    from cultionet_tpu_torch.models import CultioNet
+    from cultionet_tpu_torch.nn.init import init_parameters_
+
+    model = CultioNet(
+        in_time=12, in_channels=3, hidden_channels=64, dilations=[1, 2],
+        dropout=dropout, activation_type="SiLU",
+        **{"attention_weights": "natten", **options},
+    )
+    init_parameters_(model, torch.Generator().manual_seed(seed))
+    return model
+
+
+def option_step_launches(options: dict) -> dict:
+    """NA launches of one "16-mixed" train step at dropout 0.2: the
+    decoder's three dropout calls forward and backward with NATTEN (the
+    recompute of remat runs the forward again), none without it."""
+    want = {name: 0 for name in read_launches()}
+    if options.get("attention_weights", "natten") == "natten":
+        want["na2d_fwd_drop"] = 6 if options.get("remat") else 3
+        want["na2d_bwd_drop"] = 3
+    return want
+
+
+def option_coords(which: int):
+    """The ``which``-th (lat, lon) batch of OPTION_COORDS on the card."""
+    return tuple(
+        torch.tensor(values, dtype=torch.float32, device="cuda")
+        for values in OPTION_COORDS[which]
+    )
+
+
+def option_train(options: dict, label: str, tf32: bool = False):
+    """The timed "16-mixed" steps of one configuration: (state, record).
+    With ``tf32`` also the rate with cuDNN's TF32 on (PyTorch's default;
+    this script turns it off): where a model computes in fp32 on the
+    card, as the fusion and the heads do under ``use_latlon``, that is
+    what a user's run pays."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from cultionet_tpu_torch.train.step import (
+        create_train_state,
+        make_train_step,
+    )
+
+    _, tx = train_setup(dropout=0.2)
+    state = create_train_state(option_model(options), tx, device="cuda")
+    step = make_train_step(
+        loss_name="TanimotoComplementLoss", precision="16-mixed",
+        device="cuda",
+    )
+    batch = train_batch().with_centroids().to("cuda")
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    losses = []
+    for _ in range(OPTION_WARMUP):
+        losses.append(step(state, batch, gen)[1]["loss"])
+    torch.cuda.reset_peak_memory_stats()
+    zero_launches()
+    start = time.perf_counter()
+    for _ in range(OPTION_STEPS):
+        losses.append(step(state, batch, gen)[1]["loss"])
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - start
+    launches = read_launches()
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    losses = [float(x) for x in losses]
+    require(
+        all(np.isfinite(losses)), f"model_options {label}: losses {losses}"
+    )
+    want = {
+        k: OPTION_STEPS * n for k, n in option_step_launches(options).items()
+    }
+    require(
+        launches == want,
+        f"model_options {label}: train launched {launches}, want {want}",
+    )
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        step(state, batch, gen)
+        torch.cuda.synchronize()
+    _, device_us, _ = device_time_by_kernel(prof, 1)
+    steps_per_s = OPTION_STEPS / seconds
+    extra = {}
+    if tf32:
+        torch.backends.cudnn.allow_tf32 = True
+        try:
+            step(state, batch, gen)
+            torch.cuda.synchronize()
+            start = time.perf_counter()
+            for _ in range(OPTION_STEPS):
+                step(state, batch, gen)
+            torch.cuda.synchronize()
+            tf32_s = time.perf_counter() - start
+            with profile(activities=[ProfilerActivity.CUDA]) as prof:
+                step(state, batch, gen)
+                torch.cuda.synchronize()
+        finally:
+            torch.backends.cudnn.allow_tf32 = False
+        extra["train_chips_per_s_cudnn_tf32"] = 4 * OPTION_STEPS / tf32_s
+        extra["step_device_ms_cudnn_tf32"] = (
+            device_time_by_kernel(prof, 1)[1] / 1e3
+        )
+    return state, {
+        **extra,
+        "train_chips_per_s": 4 * steps_per_s,
+        "train_steps_per_s": steps_per_s,
+        "step_device_ms": device_us / 1e3,
+        "step_device_idle_share": 1.0 - device_us / 1e6 * steps_per_s,
+        "train_peak_memory_gib": peak,
+        "train_launches": launches,
+        "losses": losses,
+    }
+
+
+def option_predict(options: dict, label: str) -> dict:
+    """One bf16 predict batch of 8 x 140^2 windows: its rate, its launches
+    and, with NATTEN, the kernels against their plain version on the same
+    bf16-valued windows: in fp32 within 1e-4 (phase ``model``'s gate);
+    in bf16, where the network amplifies each side's rounding (the bf16
+    plain forward and the kernels' differed by up to 0.0273 in one run),
+    the kernels' forward lies within 2e-2 of the fp32 plain forward beyond
+    the bf16 plain forward's own distance from it, as the kernel checks
+    hold bf16 against the plain version in fp32. The model has seeded
+    weights and BatchNorm statistics estimated by 20 training-mode passes
+    over seeded windows, as ``build_model`` does and for its reason."""
+    from cultionet_tpu_torch.nn.dropout import dropout_rng
+    from cultionet_tpu_torch.ops import flags
+    from cultionet_tpu_torch.train.step import make_predict_step
+
+    gen = torch.Generator(device="cuda").manual_seed(1)
+    lat, lon = option_coords(0)
+    model = option_model(options).to("cuda").train()
+    with torch.no_grad(), dropout_rng(gen):
+        for _ in range(20):
+            model(
+                torch.rand(8, 12, 140, 140, 3, device="cuda", generator=gen),
+                lat, lon,
+            )
+    model.eval()
+    step = make_predict_step(model, "bf16", "cuda")
+    x = torch.rand(8, 12, 140, 140, 3, device="cuda", generator=gen)
+    x = x.bfloat16().float()
+    step(x, lat, lon)  # warm-up
+    zero_launches()
+    start = time.perf_counter()
+    outputs = step(x, lat, lon)
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - start
+    launches = read_launches()
+    check_outputs(outputs, (8, 140, 140, 1), f"model_options {label}")
+    natten = options.get("attention_weights", "natten") == "natten"
+    want = {name: 0 for name in launches}
+    want["na2d_fwd"] = 3 if natten else 0
+    require(
+        launches == want,
+        f"model_options {label}: predict launched {launches}, want {want}",
+    )
+    record = {
+        "predict_windows_per_s": 8 / seconds,
+        "predict_launches": launches,
+    }
+    if natten:
+        step32 = make_predict_step(model, "fp32", "cuda")
+        kernel32 = step32(x, lat, lon)
+        flags.set_cuda_natten(False)
+        try:
+            plain = step(x, lat, lon)
+            plain32 = step32(x, lat, lon)
+        finally:
+            flags.set_cuda_natten(True)
+
+        def max_abs(a, b):
+            return max(
+                (a[n] - b[n]).abs().max().item()
+                for n in ("distance", "edge", "crop")
+            )
+
+        errors = {
+            "kernel_vs_plain_fp32_max_abs": max_abs(kernel32, plain32),
+            "kernel_vs_plain_bf16_max_abs": max_abs(outputs, plain),
+            "kernel_bf16_vs_plain_fp32_max_abs": max_abs(outputs, plain32),
+            "plain_bf16_vs_plain_fp32_max_abs": max_abs(plain, plain32),
+        }
+        require(
+            errors["kernel_vs_plain_fp32_max_abs"] <= 1e-4
+            and errors["kernel_bf16_vs_plain_fp32_max_abs"]
+            <= errors["plain_bf16_vs_plain_fp32_max_abs"] + 2e-2,
+            f"model_options {label}: kernel vs plain {errors}",
+        )
+        record.update(errors)
+    return record
+
+
+def option_card_vs_cpu(options: dict, label: str) -> dict:
+    """An fp32 dropout-0 step's loss and gradients at batch 1 (1 x 44^2),
+    on the card against the CPU, with train_parity's limits."""
+    import copy
+
+    from cultionet_tpu_torch.data.synthetic import create_batch
+
+    model = option_model(options, dropout=0.0, seed=1)
+    small = create_batch(
+        num_channels=3, num_time=12, height=44, width=44, batch_size=1,
+        rng=np.random.default_rng(1),
+    ).with_centroids()
+    card_loss, card_grads = loss_and_grads(copy.deepcopy(model), small, "cuda")
+    cpu_loss, cpu_grads = loss_and_grads(model, small, "cpu")
+    loss_err = abs(card_loss - cpu_loss)
+    require(
+        loss_err <= 1e-5, f"model_options {label}: card vs CPU loss {loss_err}"
+    )
+    return {
+        "card_vs_cpu_loss_abs_diff": loss_err,
+        **require_grads_close(
+            f"model_options {label} card vs CPU", card_grads, cpu_grads
+        ),
+    }
+
+
+def remat_against_plain() -> dict:
+    """O7: one fp32 step at dropout 0.2 of the remat model against the
+    plain model, from the same weights and generator seed, with cuDNN's
+    deterministic algorithms: loss, gradients and running statistics
+    within 1e-5, the generator's state after the step equal."""
+    import copy
+
+    from cultionet_tpu_torch.train.step import forward_loss
+
+    base = option_model({}, seed=2)
+    batch = train_batch().to("cuda")
+    results = {}
+    torch.backends.cudnn.deterministic = True
+    try:
+        for remat in (False, True):
+            model = copy.deepcopy(base).to("cuda")
+            model.mask_model.remat = remat
+            gen = torch.Generator(device="cuda").manual_seed(3)
+            zero_launches()
+            loss, _ = forward_loss(
+                model, batch, gen, torch.float32,
+                loss_name="TanimotoComplementLoss",
+            )
+            loss.backward()
+            launches = read_launches()
+            results[remat] = (
+                loss.item(),
+                {n: p.grad for n, p in model.named_parameters()},
+                dict(model.named_buffers()),
+                gen.get_state(),
+                launches,
+            )
+    finally:
+        torch.backends.cudnn.deterministic = False
+    (l0, g0, b0, s0, n0), (l1, g1, b1, s1, n1) = results[False], results[True]
+    grad_err = max((g1[k] - v).abs().max().item() for k, v in g0.items())
+    stats_err = max(
+        (b1[k].float() - v.float()).abs().max().item() for k, v in b0.items()
+    )
+    record = {
+        "loss": l0,
+        "loss_abs_diff": abs(l1 - l0),
+        "grad_max_abs_diff": grad_err,
+        "running_stats_max_abs_diff": stats_err,
+        "generator_state_equal": bool(torch.equal(s0, s1)),
+        "launches_plain": n0,
+        "launches_remat": n1,
+    }
+    require(
+        abs(l1 - l0) <= 1e-5 and grad_err <= 1e-5 and stats_err <= 1e-5
+        and record["generator_state_equal"]
+        and n1["na2d_fwd_drop"] == 2 * n0["na2d_fwd_drop"] == 6,
+        f"model_options O7: remat vs plain {record}",
+    )
+    return record
+
+
+def remat_peak_memory() -> dict:
+    """O7: peak device memory of one "16-mixed" step (after a warm-up
+    step) with and without remat, at batch 4 and 16."""
+    from cultionet_tpu_torch.data.synthetic import create_batch
+    from cultionet_tpu_torch.train.step import (
+        create_train_state,
+        make_train_step,
+    )
+
+    step = make_train_step(
+        loss_name="TanimotoComplementLoss", precision="16-mixed",
+        device="cuda",
+    )
+    record = {}
+    for batch_size in (4, 16):
+        batch = create_batch(
+            num_channels=3, num_time=12, height=100, width=100,
+            batch_size=batch_size, rng=np.random.default_rng(0),
+        ).to("cuda")
+        for remat in (False, True):
+            _, tx = train_setup(dropout=0.2)
+            state = create_train_state(
+                option_model({"remat": remat}), tx, device="cuda"
+            )
+            gen = torch.Generator(device="cuda").manual_seed(0)
+            step(state, batch, gen)
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            base = torch.cuda.memory_allocated()
+            step(state, batch, gen)
+            torch.cuda.synchronize()
+            record[f"batch{batch_size}_{'remat' if remat else 'plain'}"] = {
+                "peak_gib": torch.cuda.max_memory_allocated() / 2**30,
+                "step_gib_above_resident": (
+                    torch.cuda.max_memory_allocated() - base
+                ) / 2**30,
+            }
+            del state
+            torch.cuda.empty_cache()
+        plain = record[f"batch{batch_size}_plain"]["step_gib_above_resident"]
+        remat = record[f"batch{batch_size}_remat"]["step_gib_above_resident"]
+        record[f"batch{batch_size}_plain_over_remat"] = plain / remat
+    return record
+
+
+def latlon_export(model, workdir) -> dict:
+    """O6: a bf16 artifact of the trained state at batch 8 x 140^2; served
+    in process, with cuDNN's deterministic algorithms, it equals the eager
+    serve program (0.0); two coordinate batches give different outputs."""
+    from cultionet_tpu_torch.export import (
+        build_serve_fn,
+        export_state,
+        load_predictor,
+    )
+
+    out = workdir / "model_options" / "latlon_bf16.cnx"
+    start = time.perf_counter()
+    export_state(
+        model, out, in_time=12, in_channels=3, batch_size=EXPORT_BATCH,
+        chip_size=140, precision="bf16",
+    )
+    export_s = time.perf_counter() - start
+    served = load_predictor(out)
+    serve = build_serve_fn(model, precision="bf16")
+    wire = torch.from_numpy(
+        np.random.default_rng(43).integers(
+            0, 10000, size=(EXPORT_BATCH, 12, 140, 140, 3), dtype=np.int16
+        )
+    ).cuda()
+    bands = ("distance", "edge", "crop")
+    outputs = []
+    torch.backends.cudnn.deterministic = True
+    try:
+        for which in (0, 1):
+            lat, lon = option_coords(which)
+            got = served.call_on_device(wire, lat, lon)
+            with torch.inference_mode():
+                want = serve(wire, lat, lon)
+            err = max((g - w).abs().max().item() for g, w in zip(got, want))
+            outputs.append((got, err))
+    finally:
+        torch.backends.cudnn.deterministic = False
+    errors = [err for _, err in outputs]
+    coords_effect = max(
+        (a - b).abs().max().item()
+        for a, b in zip(outputs[0][0], outputs[1][0])
+    )
+    require(
+        errors == [0.0, 0.0] and coords_effect > 1e-4
+        and all(v.dtype == torch.float32 for v in outputs[0][0]),
+        f"model_options O6: served vs in-process {errors}, coordinates "
+        f"moved the outputs by {coords_effect}",
+    )
+    return {
+        "export_s": export_s,
+        "artifact_bytes": out.stat().st_size,
+        "served_vs_inprocess_max_abs": errors,
+        "coordinate_batches_max_abs_diff": coords_effect,
+        "outputs": list(bands),
+    }
+
+
+def cli_model_options(workdir) -> dict:
+    """``train --pool-by-max --batchnorm-first --use-latlon --epochs 1``
+    then ``predict`` on a copy of the cli phase's project (its chips,
+    window chips and normalization statistics; no checkpoint)."""
+    import shutil
+
+    from cultionet_tpu_torch.data.tiny_tiff import read_tiff
+    from cultionet_tpu_torch.scripts.cli import main as cli
+
+    project = workdir / "cli_options_project"
+    shutil.copytree(
+        workdir / "cli_project", project,
+        ignore=shutil.ignore_patterns(
+            "*_store", "history.csv", "*.cnx", "out"
+        ),
+    )
+    p = ["-p", str(project)]
+    zero_launches()
+    start = time.perf_counter()
+    cli(["train", *p, "--pool-by-max", "--batchnorm-first", "--use-latlon",
+         "--epochs", "1"])
+    torch.cuda.synchronize()
+    train_s = time.perf_counter() - start
+    launches = read_launches()
+    require(
+        launches == fit_launches(4, 1),
+        f"model_options cli train launched {launches}",
+    )
+    out = project / "out" / "options.tif"
+    zero_launches()
+    start = time.perf_counter()
+    cli(["predict", *p, "--region", "predict", "-o", str(out)])
+    torch.cuda.synchronize()
+    predict_s = time.perf_counter() - start
+    predict_launches = read_launches()
+    want = {name: 0 for name in predict_launches}
+    want["na2d_fwd"] = 12
+    bands = read_tiff(out)[0]
+    require(
+        predict_launches == want and bands.shape == (3, 420, 420),
+        f"model_options cli predict launched {predict_launches}, raster "
+        f"{bands.shape}",
+    )
+    return {
+        "train_1_epoch_s": train_s,
+        "train_launches": launches,
+        "predict_s": predict_s,
+        "predict_launches": predict_launches,
+        "raster_shape": list(bands.shape),
+    }
+
+
+def phase_model_options(smi: str, workdir) -> None:
+    records = {}
+    for label, options in OPTION_CONFIGS:
+        start = time.perf_counter()
+        state, record = option_train(
+            options, label, tf32=label in ("default", "O6", "default_end")
+        )
+        if label != "default_end":  # its weights and path: the default's
+            record.update(option_predict(options, label))
+        if options:
+            record.update(option_card_vs_cpu(options, label))
+        if label == "O6":
+            record["export"] = latlon_export(state.model, workdir)
+        del state
+        torch.cuda.empty_cache()
+        if label == "O7":
+            record["remat_vs_plain"] = remat_against_plain()
+            record["peak_memory"] = remat_peak_memory()
+        record["options"] = options
+        record["seconds"] = time.perf_counter() - start
+        records[label] = record
+        print(f"model_options {label}: {record['seconds']:.1f} s", flush=True)
+    start = time.perf_counter()
+    cli_record = cli_model_options(workdir)
+    cli_record["seconds"] = time.perf_counter() - start
+    default_rate = (
+        records["default"]["train_chips_per_s"]
+        + records["default_end"]["train_chips_per_s"]
+    ) / 2
+    emit(
+        {
+            "phase": "model_options",
+            "card": smi,
+            "train_batch": [4, 12, 100, 100, 3],
+            "predict_batch": [8, 12, 140, 140, 3],
+            "precision": {"train": "16-mixed", "predict": "bf16"},
+            "timed_steps": OPTION_STEPS,
+            "configs": records,
+            "train_rate_over_default": {
+                label: r["train_chips_per_s"] / default_rate
+                for label, r in records.items()
+            },
+            "cli": cli_record,
+        }
+    )
+
+
 def kernel_entry(name, source, replaces, launches, summary) -> dict:
     return {
         "name": name,
@@ -3057,6 +3590,7 @@ def main() -> int:
         phase_export(fit_result, Path(tmp))
         phase_transfer(fit_result, Path(tmp))
         phase_cli(Path(tmp))
+        phase_model_options(smi, Path(tmp))
 
     fwd_src = "cultionet_tpu_torch/ops/csrc/na2d_fwd.cu"
     bwd_src = "cultionet_tpu_torch/ops/csrc/na2d_bwd.cu"

@@ -2,8 +2,9 @@
 field-for-field copy of cultionet_tpu/config.py).
 
 Every field of the JAX configuration is here with its default, so a
-configuration written for one package reads in the other. The fields the
-port does not run yet are refused where they are read
+configuration written for one package reads in the other. Every model
+field builds, ``remat`` included; the data and device fields the port
+does not run yet are refused where they are read
 (``train/fit.py::check_ported``), with ``NotImplementedError``.
 """
 

@@ -77,9 +77,8 @@ class ServeProgram(nn.Module):
     """``forward(x, lat, lon)``: int16 (B, T, H, W, C) chips x 10000 and
     (B,) fp32 coordinates -> fp32 (distance, edge, crop), step for step
     the JAX ``serve_fn``. The model's weights are a compute-dtype copy; the
-    norm statistics stay fp32. The model takes no coordinates (the port's
-    CultioNet has no lat/lon embedding), so ``lat`` and ``lon`` are the
-    contract's inputs only."""
+    norm statistics and the coordinates stay fp32 (a ``use_latlon`` model
+    embeds the coordinates; any other leaves them unused)."""
 
     def __init__(
         self,
@@ -108,7 +107,7 @@ class ServeProgram(nn.Module):
             vals = torch.log(vals * 50.0 + 1.0).clamp_min(CLIP_MIN)
         if self.normalized:
             vals = (vals - self.norm_mean) / self.norm_std
-        outputs = self.model(vals.to(self.compute_dtype))
+        outputs = self.model(vals.to(self.compute_dtype), lat, lon)
         return tuple(outputs[name].to(torch.float32) for name in OUTPUT_NAMES)
 
 

@@ -120,7 +120,7 @@ def predict(
     )
     results = []
     for batch in loader:
-        outputs = predict_step(batch.x)
+        outputs = predict_step(batch.x, batch.lat, batch.lon)
         host = {name: outputs[name].cpu().numpy() for name in BAND_NAMES}
         if writer is not None:
             writer(batch, host)

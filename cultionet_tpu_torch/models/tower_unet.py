@@ -5,7 +5,8 @@ import typing as T
 import torch
 from torch import nn
 
-from ..enums import AttentionTypes
+from ..enums import AttentionTypes, ResBlockTypes
+from ..nn.remat import checkpoint
 from .temporal import PreTimeReduction, TemporalTransformer
 from .unet_parts import (
     TowerUNetDecoder,
@@ -23,7 +24,12 @@ class TowerUNet(nn.Module):
     neighborhood attention in the decoder, fed by the temporal-reduction
     front end; three per-pixel streams (distance, edge, crop).
 
-    ``forward`` takes ``x`` as ``(B, T, H, W, C)`` and returns NCHW maps.
+    ``forward`` takes ``x`` as ``(B, T, H, W, C)`` and, with
+    ``use_latlon``, the chips' (lon, lat) in degrees as ``(B, 2)``; it
+    returns NCHW maps. With ``remat`` a training forward under autograd
+    rematerializes the encoder, the decoder and the fusion in the backward
+    pass (``nn/remat.py``): less activation memory for a second run of
+    those segments. Eval, predict and ``torch.export`` never checkpoint.
     """
 
     def __init__(
@@ -34,10 +40,16 @@ class TowerUNet(nn.Module):
         dilations: T.Optional[T.Sequence[int]] = None,
         activation_type: str = "SiLU",
         dropout: float = 0.0,
+        res_block_type: str = ResBlockTypes.RESA,
         attention_weights: T.Optional[str] = AttentionTypes.NATTEN,
+        pool_by_max: bool = False,
+        batchnorm_first: bool = False,
+        use_latlon: bool = False,
         temporal_encoder: str = "conv",
+        remat: bool = False,
     ):
         super().__init__()
+        self.remat = remat
         channels = [
             hidden_channels,
             hidden_channels * 2,
@@ -64,7 +76,14 @@ class TowerUNet(nn.Module):
                 f"{temporal_encoder!r}"
             )
         self.encoder = TowerUNetEncoder(
-            channels[0], channels, dilations, activation_type, dropout
+            channels[0],
+            channels,
+            dilations,
+            activation_type,
+            dropout,
+            res_block_type=res_block_type,
+            pool_by_max=pool_by_max,
+            batchnorm_first=batchnorm_first,
         )
         self.decoder = TowerUNetDecoder(
             channels,
@@ -72,10 +91,18 @@ class TowerUNet(nn.Module):
             dilations,
             activation_type,
             dropout,
+            res_block_type=res_block_type,
             attention_weights=attention_weights,
+            batchnorm_first=batchnorm_first,
         )
         self.tower_fusion = TowerUNetFusion(
-            channels, up_channels, dilations, activation_type
+            channels,
+            up_channels,
+            dilations,
+            activation_type,
+            res_block_type=res_block_type,
+            batchnorm_first=batchnorm_first,
+            use_latlon=use_latlon,
         )
         self.final_a = TowerUNetFinal(up_channels, activation_type)
         self.final_b = TowerUNetFinal(
@@ -86,11 +113,20 @@ class TowerUNet(nn.Module):
         )
         self.final_combine = TowerUNetFinalCombine()
 
-    def forward(self, x: Tensor) -> T.Dict[str, Tensor]:
+    def _segment(self, module: nn.Module, *args):
+        if self.remat and self.training and torch.is_grad_enabled():
+            return checkpoint(module, *args)
+        return module(*args)
+
+    def forward(
+        self, x: Tensor, latlon_coords: T.Optional[Tensor] = None
+    ) -> T.Dict[str, Tensor]:
         embeddings = self.pre_unet(x)
-        encoded = self.encoder(embeddings)
-        decoded = self.decoder(encoded)
-        towers = self.tower_fusion(encoded, decoded)
+        encoded = self._segment(self.encoder, embeddings)
+        decoded = self._segment(self.decoder, encoded)
+        towers = self._segment(
+            self.tower_fusion, encoded, decoded, latlon_coords
+        )
         size_a = towers["x_tower_a"].shape[-2:]
         out_a = self.final_a(towers["x_tower_a"], suffix="_a")
         out_b = self.final_b(towers["x_tower_b"], size=size_a, suffix="_b")

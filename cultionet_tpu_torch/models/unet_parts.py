@@ -6,6 +6,12 @@ here. Options the JAX model fixes when it builds these parts (no attention
 in the encoder and the fusion towers, one class, both head activations)
 are fixed here too. Output heads return NCHW maps; the model's public
 forward turns them channels-last.
+
+With ``use_latlon`` the fusion towers concatenate the fp32 embedding of
+the chips' coordinates (``GeoEmbeddings``) to their bf16 inputs under a
+bf16 compute type, so they and the heads compute in fp32 on their bf16
+weights, as JAX's type promotion makes the JAX model do
+(``nn/layers.py``).
 """
 
 import typing as T
@@ -13,13 +19,15 @@ import typing as T
 import torch
 from torch import nn
 
-from ..enums import AttentionTypes, InferenceNames
+from ..enums import AttentionTypes, InferenceNames, ResBlockTypes
 from ..nn.blocks import (
     ConvBlock2d,
     ConvTranspose2d,
     PoolResidualConv,
     ResidualAConv,
+    ResidualConv,
 )
+from ..nn.layers import Conv2d, Linear
 
 Tensor = torch.Tensor
 
@@ -44,6 +52,63 @@ class SigmoidCrisp(nn.Module):
         return torch.sigmoid(x * scale)
 
 
+class GeoEmbeddings(nn.Module):
+    """(lon, lat) in degrees -> the point on the unit sphere (no gradient)
+    -> a linear embedding of ``channels``."""
+
+    def __init__(self, channels: int):
+        super().__init__()
+        self.Dense_0 = Linear(3, channels)
+
+    def forward(self, latlon_coords: Tensor) -> Tensor:
+        radians = torch.deg2rad(latlon_coords)
+        lon, lat = radians[:, 0], radians[:, 1]
+        cartesian = torch.stack(
+            [
+                torch.cos(lat) * torch.cos(lon),
+                torch.cos(lat) * torch.sin(lon),
+                torch.sin(lat),
+            ],
+            dim=-1,
+        )
+        return self.Dense_0(cartesian.detach())
+
+
+def residual_block(
+    res_block_type: str,
+    in_channels: int,
+    out_channels: int,
+    kernel_size: int = 3,
+    num_blocks: int = 2,
+    dilations: T.Optional[T.Sequence[int]] = None,
+    **kwargs,
+) -> nn.Module:
+    """The residual block the JAX parts build for ``res_block_type``: a
+    ``ResidualConv`` (which takes no dilations and no NA options) or a
+    ``ResidualAConv``."""
+    if res_block_type == ResBlockTypes.RES:
+        kwargs = {
+            k: v for k, v in kwargs.items() if not k.startswith("natten_")
+        }
+        return ResidualConv(
+            in_channels,
+            out_channels,
+            kernel_size=kernel_size,
+            num_blocks=num_blocks,
+            **kwargs,
+        )
+    if res_block_type != ResBlockTypes.RESA:
+        raise ValueError(f"Unsupported res_block_type: {res_block_type}")
+    return ResidualAConv(
+        in_channels,
+        out_channels,
+        kernel_size=kernel_size,
+        num_blocks=num_blocks,
+        dilations=dilations,
+        **kwargs,
+    )
+
+
 class StreamConv2d(nn.Module):
     """in -> hidden -> out task-stream conv."""
 
@@ -62,7 +127,7 @@ class StreamConv2d(nn.Module):
             padding=1,
             activation_type=activation_type,
         )
-        self.Conv_0 = nn.Conv2d(hidden_channels, out_channels, 3, padding=1)
+        self.Conv_0 = Conv2d(hidden_channels, out_channels, 3, padding=1)
 
     def forward(self, x: Tensor) -> Tensor:
         return self.Conv_0(self.ConvBlock2d_0(x))
@@ -120,7 +185,7 @@ class TowerUNetFinalCombine(nn.Module):
                 self.register_parameter(
                     f"{name}_gamma{i}", nn.Parameter(torch.ones(1))
                 )
-            self.add_module(f"final_{name}", nn.Conv2d(1, 1, 1))
+            self.add_module(f"final_{name}", Conv2d(1, 1, 1))
         self.edge_crisp = SigmoidCrisp()
 
     def _combine(self, task: str, name: str, parts) -> Tensor:
@@ -161,33 +226,32 @@ class UNetUpBlock(nn.Module):
         in_channels: int,
         out_channels: int,
         kernel_size: int = 3,
+        num_blocks: int = 2,
         attention_weights: T.Optional[str] = None,
         activation_type: str = "SiLU",
+        res_block_type: str = ResBlockTypes.RESA,
         dilations: T.Optional[T.Sequence[int]] = None,
+        batchnorm_first: bool = False,
         resample_up: bool = True,
-        natten_num_heads: int = 8,
-        natten_kernel_size: int = 3,
-        natten_dilation: int = 1,
-        natten_attn_drop: float = 0.0,
-        natten_proj_drop: float = 0.0,
+        **natten,
     ):
         super().__init__()
         self.up_conv = (
             ConvTranspose2d(in_channels, in_channels) if resample_up else None
         )
-        # The JAX block passes no num_blocks: its ResidualAConv keeps 2.
-        self.res_conv = ResidualAConv(
+        self.res_conv = residual_block(
+            res_block_type,
             in_channels,
             out_channels,
             kernel_size=kernel_size,
+            # The JAX block passes num_blocks to ResidualConv only: its
+            # ResidualAConv keeps 2.
+            num_blocks=num_blocks if res_block_type == ResBlockTypes.RES else 2,
             dilations=dilations,
             attention_weights=attention_weights,
             activation_type=activation_type,
-            natten_num_heads=natten_num_heads,
-            natten_kernel_size=natten_kernel_size,
-            natten_dilation=natten_dilation,
-            natten_attn_drop=natten_attn_drop,
-            natten_proj_drop=natten_proj_drop,
+            batchnorm_first=batchnorm_first,
+            **natten,
         )
 
     def forward(self, x: Tensor, size: T.Tuple[int, int]) -> Tensor:
@@ -202,7 +266,10 @@ class UNetUpBlock(nn.Module):
 
 
 class TowerUNetEncoder(nn.Module):
-    """4-stage backbone at 1/1, 1/2, 1/4, 1/8 resolution (no attention)."""
+    """4-stage backbone at 1/1, 1/2, 1/4, 1/8 resolution (no attention).
+    With ``pool_by_max`` an odd side halves to its floor (a 140-px window
+    goes 70 -> 35 -> 17; the strided conv gives 18); the decoder and the
+    towers resize to whatever sizes the encoder gives."""
 
     def __init__(
         self,
@@ -211,10 +278,19 @@ class TowerUNetEncoder(nn.Module):
         dilations: T.Optional[T.Sequence[int]] = None,
         activation_type: str = "SiLU",
         dropout: float = 0.0,
+        res_block_type: str = ResBlockTypes.RESA,
+        pool_by_max: bool = False,
+        batchnorm_first: bool = False,
     ):
         super().__init__()
         dilations = list(dilations) if dilations is not None else [1, 2]
-        common = dict(dropout=dropout, activation_type=activation_type)
+        common = dict(
+            dropout=dropout,
+            activation_type=activation_type,
+            res_block_type=res_block_type,
+            pool_by_max=pool_by_max,
+            batchnorm_first=batchnorm_first,
+        )
         self.down_a = PoolResidualConv(
             in_channels, channels[0], dilations=dilations, pool_first=False,
             **common,
@@ -244,7 +320,7 @@ class TowerUNetEncoder(nn.Module):
 
 class TowerUNetDecoder(nn.Module):
     """1/8 bottleneck + 3 up blocks, all at ``up_channels``. The up blocks
-    hold the model's neighborhood attention."""
+    hold the model's attention (neighborhood or spatial-channel)."""
 
     def __init__(
         self,
@@ -253,12 +329,16 @@ class TowerUNetDecoder(nn.Module):
         dilations: T.Optional[T.Sequence[int]] = None,
         activation_type: str = "SiLU",
         dropout: float = 0.0,
+        res_block_type: str = ResBlockTypes.RESA,
         attention_weights: T.Optional[str] = AttentionTypes.NATTEN,
+        batchnorm_first: bool = False,
     ):
         super().__init__()
         dilations = list(dilations) if dilations is not None else [1, 2]
         common = dict(
             activation_type=activation_type,
+            res_block_type=res_block_type,
+            batchnorm_first=batchnorm_first,
             natten_attn_drop=dropout,
             natten_proj_drop=dropout,
         )
@@ -266,6 +346,7 @@ class TowerUNetDecoder(nn.Module):
             channels[3],
             up_channels,
             kernel_size=1,
+            num_blocks=1,
             dilations=[1],
             resample_up=False,
             attention_weights=None,
@@ -297,7 +378,9 @@ class TowerUNetDecoder(nn.Module):
 
 class TowerUNetBlock(nn.Module):
     """One UNet3+-style full-scale fusion tower (no attention), output at
-    ``up_channels``."""
+    ``up_channels``. With ``use_latlon`` the chips' coordinate embedding,
+    broadcast over the map, joins the concatenation before the tower
+    input."""
 
     def __init__(
         self,
@@ -307,25 +390,33 @@ class TowerUNetBlock(nn.Module):
         tower: bool = False,
         dilations: T.Optional[T.Sequence[int]] = None,
         activation_type: str = "SiLU",
+        res_block_type: str = ResBlockTypes.RESA,
+        batchnorm_first: bool = False,
+        use_latlon: bool = False,
     ):
         super().__init__()
         self.backbone_down_conv = ConvTranspose2d(
             backbone_down_channels, backbone_down_channels
         )
         self.decode_down_conv = ConvTranspose2d(up_channels, up_channels)
+        self.geo_embeddings = (
+            GeoEmbeddings(up_channels) if use_latlon else None
+        )
         self.tower_conv = (
             ConvTranspose2d(up_channels, up_channels) if tower else None
         )
         cat_channels = (
             backbone_side_channels
             + backbone_down_channels
-            + up_channels * (3 if tower else 2)
+            + up_channels * (2 + int(tower) + int(use_latlon))
         )
-        self.res_conv = ResidualAConv(
+        self.res_conv = residual_block(
+            res_block_type,
             cat_channels,
             up_channels,
             dilations=dilations,
             activation_type=activation_type,
+            batchnorm_first=batchnorm_first,
         )
 
     def forward(
@@ -335,6 +426,7 @@ class TowerUNetBlock(nn.Module):
         decode_side: Tensor,
         decode_down: Tensor,
         tower_down: T.Optional[Tensor] = None,
+        latlon_coords: T.Optional[Tensor] = None,
     ) -> Tensor:
         size = decode_side.shape[-2:]
         parts = [
@@ -343,8 +435,17 @@ class TowerUNetBlock(nn.Module):
             decode_side,
             self.decode_down_conv(decode_down, size),
         ]
+        if self.geo_embeddings is not None:
+            if latlon_coords is None:
+                raise ValueError("use_latlon: no lat/lon coordinates given")
+            embeddings = self.geo_embeddings(latlon_coords)
+            parts.append(
+                embeddings[:, :, None, None].expand(-1, -1, *size)
+            )
         if self.tower_conv is not None:
             parts.append(self.tower_conv(tower_down, size))
+        # torch.cat promotes as jnp.concatenate does: an fp32 embedding
+        # makes the concatenation fp32.
         return self.res_conv(torch.cat(parts, dim=1))
 
 
@@ -357,10 +458,19 @@ class TowerUNetFusion(nn.Module):
         up_channels: int,
         dilations: T.Optional[T.Sequence[int]] = None,
         activation_type: str = "SiLU",
+        res_block_type: str = ResBlockTypes.RESA,
+        batchnorm_first: bool = False,
+        use_latlon: bool = False,
     ):
         super().__init__()
         dilations = list(dilations) if dilations is not None else [1, 2]
-        common = dict(up_channels=up_channels, activation_type=activation_type)
+        common = dict(
+            up_channels=up_channels,
+            activation_type=activation_type,
+            res_block_type=res_block_type,
+            batchnorm_first=batchnorm_first,
+            use_latlon=use_latlon,
+        )
         self.tower_c = TowerUNetBlock(
             channels[2], channels[3], dilations=dilations[:2], **common
         )
@@ -372,10 +482,17 @@ class TowerUNetFusion(nn.Module):
         )
 
     def forward(
-        self, encoded: T.Dict[str, Tensor], decoded: T.Dict[str, Tensor]
+        self,
+        encoded: T.Dict[str, Tensor],
+        decoded: T.Dict[str, Tensor],
+        latlon_coords: T.Optional[Tensor] = None,
     ) -> T.Dict[str, Tensor]:
         x_tower_c = self.tower_c(
-            encoded["x_c"], encoded["x_d"], decoded["x_cu"], decoded["x_du"]
+            encoded["x_c"],
+            encoded["x_d"],
+            decoded["x_cu"],
+            decoded["x_du"],
+            latlon_coords=latlon_coords,
         )
         x_tower_b = self.tower_b(
             encoded["x_b"],
@@ -383,6 +500,7 @@ class TowerUNetFusion(nn.Module):
             decoded["x_bu"],
             decoded["x_cu"],
             tower_down=x_tower_c,
+            latlon_coords=latlon_coords,
         )
         x_tower_a = self.tower_a(
             encoded["x_a"],
@@ -390,6 +508,7 @@ class TowerUNetFusion(nn.Module):
             decoded["x_au"],
             decoded["x_bu"],
             tower_down=x_tower_b,
+            latlon_coords=latlon_coords,
         )
         return {
             "x_tower_a": x_tower_a,

@@ -3,7 +3,8 @@
 Reference scheme (layers/weights.py:24-39 of the reference library):
 Kaiming-normal (fan_in, a=0) conv/linear weights, standard-normal biases,
 BatchNorm scale ~ N(1, 0.02) and zero BN bias; LayerNorm starts at
-(1, 0) and the learnable gammas at 1 (set where they are created).
+(1, 0) and the learnable gammas at 1, the spatial-channel gate's at 0
+(set where they are created).
 Exceptions, as the JAX modules declare them: a ``LecunLinear`` (a flax
 ``nn.Dense`` left at flax's default init) gets lecun-normal weights and zero
 biases, and a module's ``normal_init`` names parameters drawn from

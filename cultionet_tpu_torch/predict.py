@@ -8,9 +8,12 @@ the device, and the raster is the weight-normalized sum. The windows come
 from an in-memory scene (``predict_scene``) or from the window chips of
 ``data/create.py::create_predict_dataset`` (``predict_windows``);
 ``predict_to_raster`` writes the result as a 3-band uint16 GeoTIFF.
+Every window goes to the model with the lat/lon centroid of its scene's
+bounds, which a ``use_latlon`` model embeds: the bounds the window chips
+carry, or those given to ``predict_scene`` (``(0, 0, 1, 1)`` when none
+are, as in the JAX package).
 
-Not yet ported: the JAX whole-scene ``lax.scan`` (a TPU dispatch tactic),
-lat/lon centroids for the model (the port builds no ``use_latlon`` model)
+Not yet ported: the JAX whole-scene ``lax.scan`` (a TPU dispatch tactic)
 and multi-device predict.
 """
 
@@ -143,6 +146,8 @@ class ScenePredictor:
         batches = (
             (
                 batch.x,
+                batch.lat,
+                batch.lon,
                 batch.window_row_off.tolist(),
                 batch.window_col_off.tolist(),
             )
@@ -159,13 +164,17 @@ class ScenePredictor:
         padding: int = 20,
         gain: float = 1e-4,
         offset: float = 0.0,
+        bounds: T.Optional[T.Tuple[float, float, float, float]] = None,
     ) -> T.Tuple[np.ndarray, T.Tuple[int, int]]:
         """In-memory large-scene inference; returns the stitched (H, W, 3)
         float32 raster in [0, 1] (distance, edge, crop) and (H, W).
 
         An int16 x 10000 scene (gain 1e-4, offset 0) rides to the device
         packed and dequantizes in the step; any other scene is scaled,
-        NaN-masked and clipped to [1e-9, 1] on the host first.
+        NaN-masked and clipped to [1e-9, 1] on the host first. Every
+        window gets the centroid of the scene's ``bounds`` (left, bottom,
+        right, top), or of ``(0, 0, 1, 1)`` without them, as the JAX
+        predictor gives it.
         """
         x = np.asarray(image_time_series)
         packed = (
@@ -182,6 +191,12 @@ class ScenePredictor:
         _, scene_h, scene_w, _ = x.shape
         size = window_size + 2 * padding
         jobs = list(iter_window_jobs(scene_h, scene_w, window_size, padding))
+        left, bottom, right, top = (
+            bounds if bounds is not None else (0.0, 0.0, 1.0, 1.0)
+        )
+        lat = np.float32((bottom + top) / 2.0)
+        lon = np.float32((left + right) / 2.0)
+        self._scene_bounds = bounds
 
         def batches():
             for i in range(0, len(jobs), self.batch_size):
@@ -198,6 +213,8 @@ class ScenePredictor:
                     windows.append(w)
                 yield (
                     np.stack(windows),
+                    np.full(len(chunk), lat),
+                    np.full(len(chunk), lon),
                     [j["row_off"] for j in chunk],
                     [j["col_off"] for j in chunk],
                 )
@@ -209,7 +226,7 @@ class ScenePredictor:
     def _blend_windows(
         self,
         batches: T.Iterable[
-            T.Tuple[T.Union[np.ndarray, Tensor], T.List[int], T.List[int]]
+            T.Tuple[T.Any, T.Any, T.Any, T.List[int], T.List[int]]
         ],
         scene_h: int,
         scene_w: int,
@@ -227,8 +244,8 @@ class ScenePredictor:
         scene_sum = torch.zeros((buf_h, buf_w, 3), device=self.device)
         scene_weight = torch.full((buf_h, buf_w, 1), 1e-8, device=self.device)
 
-        for windows, row0s, col0s in batches:
-            outputs = self.predict_step(torch.as_tensor(windows))
+        for windows, lat, lon, row0s, col0s in batches:
+            outputs = self.predict_step(windows, lat, lon)
             preds = torch.cat(
                 [outputs[name] for name in BAND_NAMES], dim=-1
             )  # (B, S, S, 3)

@@ -21,10 +21,11 @@ smallest weights after the epochs (``prune.py``), before the weight
 averaging, as the JAX loop does. ``pretrained_state`` with ``finetune``
 is transfer learning (``model.py::fit_transfer``).
 
-Not ported yet (each raises ``NotImplementedError``, in ``check_ported``
-or ``model_from_kwargs``): in-step augmentation, the chipstore and
-device-resident paths (``use_chipstore``), more than one device or
-process, FSDP, and the model options off the default path.
+Every model option of the JAX configuration builds
+(``model_from_kwargs``), ``remat`` included. Not ported yet (each raises
+``NotImplementedError`` in ``check_ported``): in-step augmentation, the
+chipstore and device-resident paths (``use_chipstore``), more than one
+device or process, and FSDP.
 """
 
 import csv
@@ -53,19 +54,12 @@ from .step import (
     create_train_state,
     make_eval_step,
     make_train_step,
+    model_inputs,
 )
 
 logger = logging.getLogger(__name__)
 
 FINAL_NAMES = ("final_a", "final_b", "final_c", "final_combine")
-# Model options of the JAX configuration the port does not build yet, with
-# the value that means "off".
-_UNPORTED_MODEL_OPTIONS = {
-    "pool_by_max": False,
-    "batchnorm_first": False,
-    "use_latlon": False,
-    "remat": False,
-}
 
 
 @dataclasses.dataclass
@@ -100,12 +94,8 @@ def check_ported(params: CultionetParams) -> None:
 
 def model_from_kwargs(in_channels: int, kwargs: T.Mapping) -> CultioNet:
     """The port's CultioNet from the JAX model's keyword arguments
-    (``CultionetParams.get_model_kwargs`` or a checkpoint's hyperparams);
-    options the port does not build yet raise if they are on."""
-    kwargs = dict(kwargs)
-    for name, off in _UNPORTED_MODEL_OPTIONS.items():
-        if kwargs.pop(name, off) != off:
-            raise NotImplementedError(f"model option {name} is not ported yet")
+    (``CultionetParams.get_model_kwargs`` or a checkpoint's
+    hyperparams)."""
     return CultioNet(in_channels=in_channels, **kwargs)
 
 
@@ -238,8 +228,10 @@ def _reestimate_batch_stats(
     run_params = cast_floating(dict(model.named_parameters()), compute_dtype)
     with dropout_rng(generator):
         for batch in loader:
-            x = batch.to(device).dequantize().x.to(compute_dtype)
-            functional_call(model, run_params, (x,))
+            batch = batch.to(device).dequantize()
+            functional_call(
+                model, run_params, model_inputs(batch, compute_dtype)
+            )
     return state
 
 

@@ -147,6 +147,15 @@ def _check_generator(generator: torch.Generator, device: torch.device):
         )
 
 
+def model_inputs(
+    batch: Batch, compute_dtype: torch.dtype
+) -> T.Tuple[Tensor, T.Optional[Tensor], T.Optional[Tensor]]:
+    """The model's positional inputs from a batch: ``x`` in the compute
+    type and the chips' ``lat`` and ``lon`` as they are (the JAX steps
+    cast only ``x``)."""
+    return batch.x.to(compute_dtype), batch.lat, batch.lon
+
+
 def forward_loss(
     model: nn.Module,
     batch: Batch,
@@ -158,13 +167,15 @@ def forward_loss(
     ``loss_fn``): ``model`` in training mode on bf16 (or fp32) copies of its
     parameters, dropout drawn from ``generator``, outputs cast to fp32 and
     the loss of ``calc_loss(**loss_kwargs)``. ``batch`` lies on the model's
-    device; ``loss.backward()`` leaves fp32 gradients in the parameters."""
+    device; ``loss.backward()`` leaves fp32 gradients in the parameters
+    (outside ``dropout_rng``: a rematerialized segment replays its own
+    generator, ``nn/remat.py``)."""
     batch = batch.dequantize()
     model.train()
     run_params = cast_floating(dict(model.named_parameters()), compute_dtype)
     with dropout_rng(generator):
         outputs = functional_call(
-            model, run_params, (batch.x.to(compute_dtype),)
+            model, run_params, model_inputs(batch, compute_dtype)
         )
     outputs = cast_floating(outputs, torch.float32)
     return calc_loss(outputs, batch, **loss_kwargs)
@@ -296,7 +307,7 @@ def make_eval_step(
             outputs = functional_call(
                 model,
                 cast_floating(tensors, compute_dtype),
-                (batch.x.to(compute_dtype),),
+                model_inputs(batch, compute_dtype),
             )
             return evaluate_predictions(
                 cast_floating(outputs, torch.float32),
@@ -310,11 +321,16 @@ def make_eval_step(
 
 
 def _inference_apply(
-    model: nn.Module, x: Tensor, compute_dtype: torch.dtype
+    model: nn.Module,
+    x: Tensor,
+    compute_dtype: torch.dtype,
+    lat: T.Optional[Tensor] = None,
+    lon: T.Optional[Tensor] = None,
 ) -> T.Dict[str, T.Optional[Tensor]]:
     """Dequantize, run ``model`` (already in ``compute_dtype``) on ``x`` in
-    the compute dtype, and return fp32 outputs."""
-    outputs = model(dequantize(x).to(compute_dtype))
+    the compute dtype and the coordinates as they are, and return fp32
+    outputs."""
+    outputs = model(dequantize(x).to(compute_dtype), lat, lon)
     return {
         name: None if value is None else value.float()
         for name, value in outputs.items()
@@ -327,17 +343,24 @@ def make_predict_step(
     """A predict step bound to an eval copy of ``model`` whose parameters
     and buffers are cast to the compute dtype once, on ``device`` (JAX casts
     them inside every step; the weights do not change while predicting).
-    The step takes ``x`` (B, T, H, W, C), int16-packed or float, moves it to
-    the device and runs under ``torch.inference_mode``."""
+    The step takes ``x`` (B, T, H, W, C), int16-packed or float, and the
+    chips' (B,) ``lat`` and ``lon`` (used by a ``use_latlon`` model), moves
+    them to the device and runs under ``torch.inference_mode``."""
     device = resolve_device(device)
     compute_dtype = resolve_dtype(precision)
     run_model = copy.deepcopy(model).to(device=device, dtype=compute_dtype)
     run_model.eval()
 
-    def predict_step(x: Tensor) -> T.Dict[str, T.Optional[Tensor]]:
+    def on_device(value):
+        return None if value is None else torch.as_tensor(value).to(device)
+
+    def predict_step(
+        x: Tensor, lat: T.Optional[Tensor] = None, lon: T.Optional[Tensor] = None
+    ) -> T.Dict[str, T.Optional[Tensor]]:
         with torch.inference_mode():
             return _inference_apply(
-                run_model, torch.as_tensor(x).to(device), compute_dtype
+                run_model, on_device(x), compute_dtype,
+                on_device(lat), on_device(lon),
             )
 
     return predict_step

@@ -11,9 +11,11 @@ cache (with NA and dilations [1, 2] it took 45 s; the same loop agreed as
 closely). The CLI-default step with NA is held to the JAX step in
 ``test_torch_train.py``; ``test_torch_fit_resume.py`` runs the loop with
 NA and dropout. Also: a fit at the CLI's default ``augment_prob`` 0.5
-ends with finite losses, and every option the port does not run yet
-raises ``NotImplementedError`` (the learning-rate sweep, pruning and
-partition files run: ``test_torch_train_options.py``).
+ends with finite losses, every option the port does not run yet raises
+``NotImplementedError`` (the learning-rate sweep, pruning and partition
+files run: ``test_torch_train_options.py``), and the model options off
+the default path train and come back from their checkpoint
+(``test_torch_model_options.py`` holds them to JAX).
 """
 
 import csv
@@ -213,9 +215,37 @@ def test_unported_options_raise(chips, option):
     ],
     ids=lambda o: next(iter(o)),
 )
-def test_unported_model_options_raise(chips, option):
+def test_unported_model_options_raise(chips, option, tmp_path):
+    """The model options ``fit`` refused until they were ported (the test
+    keeps that name) now train: one epoch with finite losses, and
+    ``load_model`` rebuilds the option from the checkpoint's
+    hyperparams."""
+    from cultionet_tpu_torch.model import load_model
+
     params = CultionetParams(
-        dataset=ChipDataset(chips), **{**CONFIG, **option}
+        ckpt_file=tmp_path / "ckpt" / "last.ckpt",
+        dataset=ChipDataset(chips),
+        **{**CONFIG, "epochs": 1, **option},
     )
-    with pytest.raises(NotImplementedError, match="not ported"):
-        fit(params, device="cpu")
+    got = fit(params, device="cpu")
+    assert got.state.step == 4
+    for key in ("loss", "val_loss", "val_score"):
+        assert np.isfinite(got.history[0][key]), key
+    _, model = load_model(tmp_path / "ckpt" / "last_store", device="cpu")
+    tower = model.mask_model
+    (name, value), = option.items()
+    built = {
+        "use_latlon": lambda: tower.tower_fusion.tower_a.geo_embeddings
+        is not None,
+        "pool_by_max": lambda: tower.encoder.down_b.pool_by_max,
+        "batchnorm_first": lambda: tower.encoder.down_b.pool_conv.bias
+        is not None,
+        "remat": lambda: tower.remat,
+        "res_block_type": lambda: tower.encoder.down_b.block
+        == "ResidualConv_0",
+    }
+    assert built[name](), name
+    assert torch.equal(
+        model.state_dict()["mask_model.final_combine.dist_gamma1"],
+        got.state.model.state_dict()["mask_model.final_combine.dist_gamma1"],
+    )
