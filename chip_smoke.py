@@ -198,6 +198,38 @@ on the first phase that fails:
     of the cli phase's project: the launches of a 1-epoch ``fit``, 12
     na2d_fwd, the raster written. Each configuration's seconds.
 
+23. device_data (the device data path, ``--use-chipstore`` and
+    ``--device-augment``): a project of 40 field-layout regions (as cli's)
+    through ``create``, 32 train and 8 validation chips, their
+    normalization statistics. The chipstore library built with g++ (timed);
+    a v2 store of the train chips whose ``read_batch`` equals the chips'
+    int16 records bit for bit; one epoch of ``ChipstoreLoader`` on the card
+    (4 threads, page-locked ring): every chip once, each batch equal to its
+    chips' records; the same epoch copied synchronously from pageable
+    memory, for the time. ``DeviceChipCache`` on the card: upload seconds,
+    ``resident_bytes`` against ``estimate_cache_bytes``, device memory
+    before and after, ``gather_batch`` equal to the records. The 8
+    dihedral codes on the card equal to the CPU bit for bit on a CLI-size
+    batch; 4,096 draws on the card: the codes' chi-square p > 1e-3, the
+    noise's mean within 3 sigma / sqrt(n) of 0 and std within 2%. fp32 at
+    dropout 0 (cuDNN deterministic) on 2 chips: the in-step step
+    (norm_stats) against the host path's step on the same records (loss within 1e-5 relative,
+    gradients within train_parity's limits), the hbm step against the
+    in-step step (bit for bit). Then ``fit`` (the CLI's training defaults)
+    for 2 epochs in each of: the host loader at augment_prob 0 and 0.5,
+    "stream", "hbm", and "hbm" with ``device_augment`` and noise 0.01:
+    per train step 3 na2d_fwd_drop and 3 na2d_bwd_drop, per validation
+    batch 3 na2d_fwd, nothing else; each epoch's train loop seconds
+    (train chips/s from the second), two steps of the first under the
+    profiler (device ms, idle share); the loader alone for an epoch and
+    one checkpoint save. A resumed "hbm" fit (in-step augmentation,
+    exponential decay; 1 epoch and a resume to 2) equal to an
+    uninterrupted 2-epoch one bit for bit; "hbm" with ``use_latlon``
+    raising before any launch;
+    ``train --use-chipstore auto --device-augment --epochs 1`` on the
+    project: the resident split chosen and its size logged, the launches
+    of a 1-epoch fit.
+
 Kernel times (``ms``, ``library_ms``) are device times: ``device_ms``
 queues 20 calls behind a sleep kernel so the card runs them back to back
 and the host's dispatch is hidden; ``call_ms`` (NA kernels) and
@@ -205,12 +237,13 @@ and the host's dispatch is hidden; ``call_ms`` (NA kernels) and
 dispatch included where the card is faster than the host.
 
 Kernel launch counts are zeroed just before each path (8, 10, 12, 13,
-16-18, 20-22; the serving process of 19 zeroes its own) and read just
+16-18, 20-23; the serving process of 19 zeroes its own) and read just
 after. Then the kernels line (seven kernels), and last
 ``{"ok": true, "device": {...}}``. TF32 is off for matmuls and
 convolutions throughout, so fp32 comparisons hold fp32 arithmetic.
 """
 
+import contextlib
 import json
 import statistics
 import subprocess
@@ -1897,13 +1930,12 @@ def fit_params(
         dilations=[1, 2],
         activation_type="SiLU",
         precision="16-mixed",
-        lr_scheduler="OneCycleLR",
         learning_rate=0.01,
         weight_decay=1e-3,
         gradient_clip_val=1.0,
         augment_prob=augment_prob,
         epochs=epochs,
-        **{"optimizer": "AdamW", **options},
+        **{"optimizer": "AdamW", "lr_scheduler": "OneCycleLR", **options},
     )
 
 
@@ -1936,9 +1968,11 @@ def require_states_equal(got, want) -> None:
             )
 
 
-def loader_s(root, norm, augment_prob: float, epochs: int = 1) -> float:
+def loader_s(
+    root, norm, augment_prob: float, epochs: int = 1, batches: int = 4
+) -> float:
     """Host seconds for the loader alone to deliver ``epochs`` epochs of
-    the train split to the card (4 batches of 4 each), at
+    the train split to the card (``batches`` batches of 4 each), at
     ``augment_prob``: the loading, augmentation draws and batch order of
     the first ``epochs`` epochs of ``fit`` on the same chips."""
     from cultionet_tpu_torch.data.datasets import ChipDataset
@@ -1953,7 +1987,7 @@ def loader_s(root, norm, augment_prob: float, epochs: int = 1) -> float:
     loaded = sum(len(list(loader)) for _ in range(epochs))
     torch.cuda.synchronize()
     seconds = time.perf_counter() - start
-    require(loaded == 4 * epochs, f"loader gave {loaded} batches")
+    require(loaded == batches * epochs, f"loader gave {loaded} batches")
     return seconds
 
 
@@ -2679,6 +2713,22 @@ def field_layout(rng, bounds, size: int = 100, cell_res: float = 10.0):
     return shapes
 
 
+def write_field_region(region, rng, bounds) -> int:
+    """One region of 12 x 100 x 100 x 3 int16 x 10000 at 10 m cells
+    (scene.npz) with a field layout (polygons.json); returns its field
+    count."""
+    region.mkdir(parents=True)
+    np.savez(
+        region / "scene.npz",
+        x=(rng.random((12, 100, 100, 3)) * 10000).astype("int16"),
+        bounds=np.asarray(bounds), cell_res=np.asarray(10.0),
+        crs=np.asarray("EPSG:32633"),
+    )
+    shapes = field_layout(rng, bounds)
+    (region / "polygons.json").write_text(json.dumps(shapes))
+    return len(shapes)
+
+
 def write_cli_project(project) -> list:
     """A seeded project of CLI_REGIONS regions ``rNN`` (scene.npz of 12 x
     100 x 100 x 3 int16 x 10000 at 10 m cells, and polygons.json with a
@@ -2687,18 +2737,9 @@ def write_cli_project(project) -> list:
     rng = np.random.default_rng(31)
     fields = []
     for k in range(CLI_REGIONS):
-        region = project / "time_series_vars" / f"r{k:02d}"
-        region.mkdir(parents=True)
         bounds = (600000.0 + 2000.0 * k, 4100000.0, 601000.0 + 2000.0 * k, 4101000.0)
-        np.savez(
-            region / "scene.npz",
-            x=(rng.random((12, 100, 100, 3)) * 10000).astype("int16"),
-            bounds=np.asarray(bounds), cell_res=np.asarray(10.0),
-            crs=np.asarray("EPSG:32633"),
-        )
-        shapes = field_layout(rng, bounds)
-        (region / "polygons.json").write_text(json.dumps(shapes))
-        fields.append(len(shapes))
+        region = project / "time_series_vars" / f"r{k:02d}"
+        fields.append(write_field_region(region, rng, bounds))
     region = project / "time_series_vars" / "predict"
     region.mkdir(parents=True)
     np.savez(
@@ -3524,6 +3565,572 @@ def phase_model_options(smi: str, workdir) -> None:
     )
 
 
+DATA_REGIONS = 40  # field-layout chips: 32 train and 8 validation (val_frac 0.2)
+DATA_STEPS, DATA_VAL_BATCHES = 8, 2  # an epoch at batch 4
+DATA_FITS = [  # (label, fit options): each mode of the device data path
+    ("host_augment_0", {}),
+    ("host_augment_0.5", {"augment_prob": 0.5}),
+    ("stream", {"use_chipstore": "stream"}),
+    ("hbm", {"use_chipstore": "hbm"}),
+    ("hbm_device_augment", {
+        "use_chipstore": "hbm", "device_augment": True,
+        "device_augment_noise": 0.01,
+    }),
+]
+
+
+def created_records(path) -> dict:
+    """A created chip's int16 x 10000 records, by the packing rule written
+    out: x and bdist (float32 in [0, 1]) scaled by 10000 and rounded, y as
+    int16."""
+    with np.load(path) as data:
+        return {
+            "x": np.round(data["x"] * np.float32(10000)).astype(np.int16),
+            "y": data["y"].astype(np.int16),
+            "bdist": np.round(data["bdist"] * np.float32(10000)).astype(np.int16),
+        }
+
+
+def require_equal_records(batch, want: dict, label: str) -> None:
+    for name, value in want.items():
+        got = getattr(batch, name).cpu().numpy()
+        require(
+            got.dtype == np.int16 and np.array_equal(got, value),
+            f"{label}: {name} differs from the chips' records",
+        )
+
+
+def data_store(dataset, path) -> dict:
+    """Build the phase's v2 chipstore of ``dataset``; read_batch of every
+    chip equals the chips' records bit for bit. Returns the records by
+    chip longitude (unique per region) and the store's path."""
+    from cultionet_tpu_torch.data import chipstore
+
+    start = time.perf_counter()
+    path = chipstore.build_chipstore_from_dataset(dataset, path)
+    write_s = time.perf_counter() - start
+    records = [created_records(f) for f in dataset.files]
+    want = {k: np.concatenate([r[k] for r in records]) for k in records[0]}
+    with chipstore.ChipStore(path) as store:
+        require(
+            store.packed and store.num_chips == len(dataset.files),
+            f"device_data: store version {store.version}, {store.num_chips} chips",
+        )
+        every = store.read_batch(range(store.num_chips))
+    require_equal_records(every, want, "device_data read_batch")
+    by_lon = {float(lon): i for i, lon in enumerate(every.lon.tolist())}
+    require(len(by_lon) == len(dataset.files), "device_data: chip lons collide")
+    return {"path": path, "by_lon": by_lon, "want": want, "write_s": write_s,
+            "bytes": path.stat().st_size}
+
+
+def stream_epochs(dataset, store: dict) -> dict:
+    """Two epochs of ChipstoreLoader on the card (4 threads, pinned ring;
+    the first allocates the ring's buffers): the second's batches hold
+    every train chip once, each equal to the records of its chips; then an
+    epoch's batches copied from the slots synchronously from pageable
+    memory, for the time."""
+    from cultionet_tpu_torch.data import chipstore
+
+    loader = chipstore.ChipstoreLoader(
+        dataset, batch_size=4, cache_path=store["path"].with_name("train.cts"),
+        seed=42, num_threads=4, device="cuda",
+    )
+    require(loader.path == store["path"], "device_data: loader built a new store")
+    pinned_s = []
+    for _ in range(2):  # the first epoch also allocates the ring's buffers
+        start = time.perf_counter()
+        batches = list(loader)
+        torch.cuda.synchronize()
+        pinned_s.append(time.perf_counter() - start)
+    seen = []
+    for batch in batches:
+        require(batch.x.is_cuda and batch.x.dtype == torch.int16,
+                f"device_data stream: x {batch.x.dtype} on {batch.x.device}")
+        idx = [store["by_lon"][float(v)] for v in batch.lon.cpu().tolist()]
+        seen += idx
+        require_equal_records(
+            batch, {k: v[idx] for k, v in store["want"].items()},
+            "device_data stream",
+        )
+    require(
+        len(batches) == DATA_STEPS and sorted(seen) == list(range(len(dataset.files))),
+        f"device_data stream: epoch of {len(batches)} batches, chips {sorted(seen)}",
+    )
+    start = time.perf_counter()
+    with chipstore.ChipStore(store["path"]) as reader:
+        for batch in reader.iter_prefetched(
+            4, seed=43, num_threads=4, num_batches=DATA_STEPS, copy=False
+        ):
+            for value in batch.tensors().values():
+                value.to("cuda")
+    torch.cuda.synchronize()
+    pageable_s = time.perf_counter() - start
+    return {"stream_epoch_s_pinned_ring": pinned_s,
+            "stream_epoch_s_pageable_sync": pageable_s}
+
+
+def resident_split(dataset, store: dict) -> dict:
+    """A DeviceChipCache on the card: its upload, bytes against the
+    estimate, device memory before and after, and gather_batch equal to
+    the host stack of the records bit for bit."""
+    from cultionet_tpu_torch.data.device_cache import (
+        DeviceChipCache,
+        estimate_cache_bytes,
+        gather_batch,
+        hbm_budget_bytes,
+    )
+
+    torch.cuda.synchronize()
+    before = torch.cuda.memory_allocated()
+    start = time.perf_counter()
+    cache = DeviceChipCache(dataset, batch_size=4, device="cuda")
+    torch.cuda.synchronize()
+    build_s = time.perf_counter() - start
+    after = torch.cuda.memory_allocated()
+    estimate = estimate_cache_bytes(len(dataset.files), 12, 100, 100, 3)
+    require(
+        cache.resident_bytes == estimate and after - before >= estimate,
+        f"device_data: resident {cache.resident_bytes}, estimate {estimate}, "
+        f"allocated {after - before}",
+    )
+    idx = torch.tensor([5, 0, 31, 5], device="cuda")
+    batch = gather_batch(cache.arrays, idx)
+    require_equal_records(
+        batch, {k: v[[5, 0, 31, 5]] for k, v in store["want"].items()},
+        "device_data gather",
+    )
+    start = time.perf_counter()
+    for index_batch in cache:
+        gather_batch(cache.arrays, index_batch.indices)
+    torch.cuda.synchronize()
+    epoch_s = time.perf_counter() - start
+    return {
+        "resident_build_s": build_s,
+        "resident_bytes": cache.resident_bytes,
+        "estimate_cache_bytes": estimate,
+        "memory_allocated_before": before,
+        "memory_allocated_after": after,
+        "hbm_budget_bytes": hbm_budget_bytes(device="cuda"),
+        "resident_epoch_gather_s": epoch_s,
+    }
+
+
+def device_augment_checks() -> dict:
+    """The 8 dihedral codes on the card against the CPU bit for bit on a
+    CLI-size batch; over 4,096 draws on the card the codes pass a
+    chi-square test at p > 1e-3, and the noise has mean within 3 sigma /
+    sqrt(n) of 0 and std within 2% of sigma."""
+    from scipy import stats
+
+    from cultionet_tpu_torch.augment.device import (
+        apply_dihedral,
+        augment_batch_on_device,
+    )
+    from cultionet_tpu_torch.data.batch import Batch
+
+    rng = np.random.default_rng(17)
+    x = torch.from_numpy(rng.random((8, 12, 100, 100, 3), dtype=np.float32))
+    y = torch.from_numpy(rng.integers(-1, 3, (8, 100, 100)).astype(np.int16))
+    bdist = torch.from_numpy(rng.random((8, 100, 100), dtype=np.float32))
+    codes = torch.arange(8)
+    want = apply_dihedral(x, y, bdist, codes)
+    got = apply_dihedral(x.cuda(), y.cuda(), bdist.cuda(), codes.cuda())
+    for name, a, b in zip(("x", "y", "bdist"), got, want):
+        require(torch.equal(a.cpu(), b), f"device_data dihedral: {name} differs")
+
+    num = 4096
+    grid = torch.arange(4, dtype=torch.float32, device="cuda").reshape(1, 1, 2, 2, 1)
+    generator = torch.Generator(device="cuda").manual_seed(5)
+    out = augment_batch_on_device(
+        Batch(x=grid.expand(num, 1, 2, 2, 1).contiguous()), generator
+    ).x.reshape(num, 4)
+    patterns = apply_dihedral(grid.expand(8, 1, 2, 2, 1), None, None,
+                              torch.arange(8, device="cuda"))[0].reshape(8, 4)
+    drawn = (out[:, None, :] == patterns[None]).all(-1).float().argmax(1)
+    require(bool((out == patterns[drawn]).all()), "device_data: unknown pattern")
+    counts = torch.bincount(drawn, minlength=8).cpu().numpy()
+    p_value = float(stats.chisquare(counts).pvalue)
+    require(p_value > 1e-3, f"device_data codes {counts}: p {p_value}")
+    sigma = 0.01
+    noise = augment_batch_on_device(
+        Batch(x=torch.zeros(num, 12, 10, 10, 3, device="cuda")), generator,
+        dihedral=False, noise_sigma=sigma,
+    ).x.double()
+    mean, std, n = float(noise.mean()), float(noise.std()), noise.numel()
+    require(
+        abs(mean) < 3 * sigma / np.sqrt(n) and abs(std / sigma - 1) < 0.02,
+        f"device_data noise: mean {mean}, std {std} over {n}",
+    )
+    return {"code_counts": counts.tolist(), "code_chi2_p": p_value,
+            "noise_mean": mean, "noise_std": std, "noise_sigma": sigma}
+
+
+class GradCapture:
+    """Stands in for a train state's optimizer: keeps the gradients the
+    step leaves in the parameters and clears them, so a step's gradients
+    can be read without an update."""
+
+    def __init__(self, model):
+        self.model = model
+        self.grads = None
+
+    def step(self) -> None:
+        self.grads = {
+            n: p.grad.detach().clone() for n, p in self.model.named_parameters()
+        }
+        for p in self.model.parameters():
+            p.grad = None
+
+
+def data_step_parity(dataset, store: dict, norm) -> dict:
+    """fp32 at dropout 0 (TF32 off, cuDNN deterministic) on 2 chips: the
+    in-step step (norm_stats, dihedral off) on their raw int16 records
+    against the host path's step on the same records scaled and normalized
+    as ChipDataset does (loss within 1e-5 relative, gradients within
+    train_parity's limits; the two dequantize formulas differ by an ulp in
+    places); the hbm step against the in-step step on the gathered batch
+    (loss and gradients equal bit for bit)."""
+    import copy
+
+    from cultionet_tpu_torch.data.batch import Batch
+    from cultionet_tpu_torch.data.datasets import ChipDataset
+    from cultionet_tpu_torch.data.device_cache import DeviceChipCache, gather_batch
+    from cultionet_tpu_torch.nn.init import init_parameters_
+    from cultionet_tpu_torch.train.optim import build_optimizer
+    from cultionet_tpu_torch.train.step import (
+        create_train_state,
+        make_hbm_train_step,
+        make_train_step,
+    )
+
+    chips = [17, 30]
+    records = {k: v[chips] for k, v in store["want"].items()}
+    host = norm(Batch(
+        x=torch.from_numpy(ChipDataset._scale(records["x"], 1e-9, 1.0)),
+        y=torch.from_numpy(records["y"].astype(np.int32)),
+        bdist=torch.from_numpy(ChipDataset._scale(records["bdist"], 1e-9, 1.0)),
+    ))
+    stats_ = (norm.dataset_mean, norm.dataset_std)
+    kwargs = dict(loss_name="TanimotoComplementLoss", device="cuda")
+    model = cli_model(dropout=0.0)
+    init_parameters_(model, torch.Generator().manual_seed(3))
+
+    def run(step, *args):
+        state = create_train_state(
+            copy.deepcopy(model), build_optimizer("AdamW", 1e-3), device="cuda"
+        )
+        state.optimizer = GradCapture(state.model)
+        _, logs = step(state, *args, torch.Generator(device="cuda").manual_seed(0))
+        return float(logs["loss"]), state.optimizer.grads
+
+    cache = DeviceChipCache(dataset, batch_size=4, device="cuda")
+    idx = torch.tensor(chips, device="cuda")
+    torch.backends.cudnn.deterministic = True
+    try:
+        in_step = run(
+            make_train_step(norm_stats=stats_, **kwargs),
+            gather_batch(cache.arrays, idx),
+        )
+        host_path = run(make_train_step(**kwargs), host)
+        hbm = run(make_hbm_train_step(norm_stats=stats_, **kwargs), cache.arrays, idx)
+    finally:
+        torch.backends.cudnn.deterministic = False
+    del cache
+    rel = abs(in_step[0] - host_path[0]) / abs(host_path[0])
+    require(rel <= 1e-5, f"device_data: in-step loss {in_step[0]} vs {host_path[0]}")
+    record = {"in_step_vs_host_loss_rel": rel,
+              **require_grads_close("device_data in-step", in_step[1], host_path[1])}
+    require(
+        hbm[0] == in_step[0]
+        and all(torch.equal(hbm[1][n], g) for n, g in in_step[1].items()),
+        "device_data: the hbm step differs from the in-step step",
+    )
+    record["hbm_vs_in_step"] = "equal"
+    return record
+
+
+PROFILE_STEPS = (4, 6)  # the train steps of the first epoch run under the profiler
+
+
+@contextlib.contextmanager
+def timed_train_loops():
+    """While open, each epoch's train loop in ``fit`` is timed: from the
+    train loader's first request (the card idle) to the card finishing
+    the last step, host clock. In the first epoch, steps PROFILE_STEPS
+    run under the profiler (from a synchronize to a synchronize), for
+    their kernels' device time and the host time they took. The
+    validation loader (a ChipLoader that does not shuffle) is not
+    timed."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from cultionet_tpu_torch.data.chipstore import ChipstoreLoader
+    from cultionet_tpu_torch.data.device_cache import DeviceChipCache
+    from cultionet_tpu_torch.data.loader import ChipLoader
+
+    loops = {"seconds": []}
+    originals = {
+        cls: cls.__iter__ for cls in (ChipLoader, ChipstoreLoader, DeviceChipCache)
+    }
+
+    def timed(original):
+        def __iter__(self):
+            if isinstance(self, ChipLoader) and not self.shuffle:
+                yield from original(self)
+                return
+            first = not loops["seconds"]
+            torch.cuda.synchronize()
+            start = time.perf_counter()
+            for i, batch in enumerate(original(self)):
+                if first and i in PROFILE_STEPS:
+                    torch.cuda.synchronize()
+                    if i == PROFILE_STEPS[0]:
+                        prof = profile(activities=[ProfilerActivity.CUDA])
+                        prof.__enter__()
+                        profiled = time.perf_counter()
+                    else:
+                        loops["profiled_s"] = time.perf_counter() - profiled
+                        prof.__exit__(None, None, None)
+                        _, loops["device_us"], loops["top"] = device_time_by_kernel(
+                            prof, 5
+                        )
+                yield batch
+            torch.cuda.synchronize()
+            loops["seconds"].append(time.perf_counter() - start)
+
+        return __iter__
+
+    for cls, original in originals.items():
+        cls.__iter__ = timed(original)
+    try:
+        yield loops
+    finally:
+        for cls, original in originals.items():
+            cls.__iter__ = original
+
+
+def data_fit(label: str, root, workdir, norm, options: dict) -> dict:
+    """2 epochs of ``fit`` at the CLI's training defaults with
+    ``options``: its launches, each epoch's train loop seconds
+    (``timed_train_loops``), train chips/s of the second, the device idle
+    share of two profiled steps of the first, and the whole fit's
+    seconds (the profile's processing included). A stream fit's store is
+    built first, so the fit finds it."""
+    from cultionet_tpu_torch.data import chipstore
+    from cultionet_tpu_torch.model import fit
+
+    ckpt = workdir / f"data_fit_{label}"
+    if options.get("use_chipstore") == "stream":
+        train_ds, _ = fit_params(root, ckpt, norm, 2).dataset.split_train_val(0.2)
+        chipstore.build_chipstore_from_dataset(train_ds, ckpt / "train.cts")
+    zero_launches()
+    with timed_train_loops() as loops:
+        start = time.perf_counter()
+        result = fit(fit_params(root, ckpt, norm, 2, **options))
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - start
+    launches = read_launches()
+    require(
+        launches == fit_launches(2 * DATA_STEPS, 2 * DATA_VAL_BATCHES),
+        f"device_data fit {label} launched {launches}",
+    )
+    for row in result.history:
+        for key in ("loss", "val_loss", "val_score"):
+            require(np.isfinite(row[key]), f"device_data fit {label}: {row}")
+    require(
+        len(loops["seconds"]) == 2 and "device_us" in loops,
+        f"device_data fit {label}: {loops}",
+    )
+    steps = PROFILE_STEPS[1] - PROFILE_STEPS[0]
+    return {
+        "fit_2_epochs_s": seconds,
+        "train_loop_s": loops["seconds"],
+        "train_chips_per_s": 4 * DATA_STEPS / loops["seconds"][1],
+        "profiled_step_ms": loops["profiled_s"] * 1e3 / steps,
+        "profiled_step_device_ms": loops["device_us"] / 1e3 / steps,
+        "profiled_device_idle_share": 1.0
+        - loops["device_us"] / 1e6 / loops["profiled_s"],
+        "profiled_top": loops["top"],
+        "history": result.history,
+        "launches": launches,
+        "stores": sorted(p.name for p in ckpt.glob("*.cts")),
+    }
+
+
+def hbm_resume_check(root, workdir, norm) -> dict:
+    """"hbm" with in-step augmentation at dropout 0.2: 1 epoch then a
+    resume to 2 against an uninterrupted 2-epoch fit: the val_loss history
+    and the parameters equal bit for bit (cuDNN deterministic; the
+    learning rate decays exponentially, a schedule that does not depend on
+    the number of epochs)."""
+    from cultionet_tpu_torch.model import fit
+
+    options = dict(
+        use_chipstore="hbm", device_augment=True, device_augment_noise=0.01,
+        lr_scheduler="ExponentialLR",
+    )
+    torch.backends.cudnn.deterministic = True
+    try:
+        fit(fit_params(root, workdir / "resume_a", norm, 1, **options))
+        resumed = fit(fit_params(root, workdir / "resume_a", norm, 2, **options))
+        whole = fit(fit_params(root, workdir / "resume_b", norm, 2, **options))
+    finally:
+        torch.backends.cudnn.deterministic = False
+    history = [
+        float(line.split(",")[2])
+        for line in (workdir / "resume_a" / "history.csv").read_text().splitlines()[1:]
+    ]
+    require(
+        history == [r["val_loss"] for r in whole.history]
+        and [r["epoch"] for r in resumed.history] == [1],
+        f"device_data resume: val_loss {history} vs "
+        f"{[r['val_loss'] for r in whole.history]}",
+    )
+    got, want = resumed.state.model.state_dict(), whole.state.model.state_dict()
+    for name, value in want.items():
+        require(torch.equal(got[name], value), f"device_data resume: {name} differs")
+    return {"val_loss": history}
+
+
+def phase_device_data(smi: str, workdir) -> None:
+    """The device data path (``--use-chipstore``, ``--device-augment``):
+    see the module docstring, item 23."""
+    import logging
+
+    from cultionet_tpu_torch.data import chipstore
+    from cultionet_tpu_torch.data.datasets import ChipDataset
+    from cultionet_tpu_torch.model import fit
+    from cultionet_tpu_torch.scripts.cli import main as cli
+    from cultionet_tpu_torch.train.checkpoint import Checkpointer
+    from cultionet_tpu_torch.utils.normalize import NormValues
+
+    phase_start = time.perf_counter()
+    start = time.perf_counter()
+    chipstore.build_library()
+    build_s = time.perf_counter() - start
+
+    project = workdir / "data_project"
+    regions = [f"d{k:02d}" for k in range(DATA_REGIONS)]
+    rng = np.random.default_rng(41)
+    for k, region in enumerate(regions):
+        bounds = (700000.0 + 2000.0 * k, 4200000.0, 701000.0 + 2000.0 * k, 4201000.0)
+        write_field_region(project / "time_series_vars" / region, rng, bounds)
+    start = time.perf_counter()
+    cli(["create", "-p", str(project), "--regions", *regions])
+    create_s = time.perf_counter() - start
+    root = project / "data" / "train"
+    require(
+        len(list((root / "processed").glob("*.npz"))) == DATA_REGIONS,
+        "device_data: create wrote the wrong number of chips",
+    )
+    start = time.perf_counter()
+    norm = NormValues.from_dataset(
+        ChipDataset(root), {"max_crop_class": 1, "edge_class": 2}
+    )
+    norm_s = time.perf_counter() - start
+    train_ds, _ = ChipDataset(root, norm_values=norm).split_train_val(0.2)
+    require(len(train_ds) == 4 * DATA_STEPS, f"device_data: {len(train_ds)} train chips")
+
+    store = data_store(train_ds, workdir / "data_store" / "train.cts")
+    record = {
+        "phase": "device_data",
+        "card": smi,
+        "chips": [DATA_REGIONS, 12, 100, 100, 3],
+        "train_chips": len(train_ds),
+        "precision": "16-mixed",
+        "chipstore_build_s": build_s,
+        "create_s": create_s,
+        "norm_s": norm_s,
+        "store_write_s": store["write_s"],
+        "store_bytes": store["bytes"],
+    }
+    part_s = {"setup": time.perf_counter() - phase_start}
+
+    def mark(name: str) -> None:
+        part_s[name] = time.perf_counter() - phase_start - sum(part_s.values())
+
+    record.update(stream_epochs(train_ds, store))
+    record.update(resident_split(train_ds, store))
+    mark("store_and_resident")
+    record["device_augment"] = device_augment_checks()
+    mark("device_augment")
+    record["step_parity"] = data_step_parity(train_ds, store, norm)
+    mark("step_parity")
+
+    fits = {}
+    for label, options in DATA_FITS:
+        fits[label] = data_fit(label, root, workdir, norm, options)
+        mark(f"fit_{label}")
+        print(f"device_data fit {label}: {fits[label]['train_loop_s']} s train "
+              f"loops", flush=True)
+    require(
+        len(fits["stream"]["stores"]) == 1 and not fits["hbm"]["stores"],
+        f"device_data: stores {fits['stream']['stores']}, {fits['hbm']['stores']}",
+    )
+    record["fits"] = fits
+    record["resume"] = hbm_resume_check(root, workdir, norm)
+    mark("resume")
+    # Where an epoch's host time goes: the loader alone and one save.
+    record["loader_epoch_s"] = {
+        label: loader_s(root, norm, prob, batches=DATA_STEPS)
+        for label, prob in (("host_augment_0", 0.0), ("host_augment_0.5", 0.5))
+    }
+    record["loader_epoch_s"]["stream"] = record["stream_epoch_s_pinned_ring"][1]
+    record["loader_epoch_s"]["hbm"] = record["resident_epoch_gather_s"]
+    state = fit(fit_params(root, workdir / "data_skip", norm, 1, skip_train=True)).state
+    start = time.perf_counter()
+    Checkpointer(workdir / "data_timing").save_last(state, 0)
+    torch.cuda.synchronize()
+    record["checkpoint_save_s"] = time.perf_counter() - start
+    del state
+
+    # use_latlon cannot train from the resident split.
+    zero_launches()
+    try:
+        fit(fit_params(root, workdir / "data_latlon", norm, 1,
+                       use_chipstore="hbm", use_latlon=True))
+        raise AssertionError("device_data: hbm with use_latlon did not raise")
+    except ValueError as err:
+        require("use_latlon" in str(err), f"device_data latlon: {err}")
+    require(not any(read_launches().values()), "device_data: latlon launched")
+
+    # The command line: auto picks the resident split and logs its size.
+    messages = []
+
+    class Collect(logging.Handler):
+        def emit(self, log_record):
+            messages.append(log_record.getMessage())
+
+    fit_logger = logging.getLogger("cultionet_tpu_torch.train.fit")
+    handler, level = Collect(), fit_logger.level
+    fit_logger.addHandler(handler)
+    fit_logger.setLevel(logging.INFO)
+    zero_launches()
+    start = time.perf_counter()
+    try:
+        cli(["train", "-p", str(project), "--epochs", "1", "--use-chipstore",
+             "auto", "--device-augment"])
+        torch.cuda.synchronize()
+    finally:
+        fit_logger.removeHandler(handler)
+        fit_logger.setLevel(level)
+    cli_s = time.perf_counter() - start
+    launches = read_launches()
+    resident = [m for m in messages if m.startswith("device-resident dataset")]
+    require(
+        launches == fit_launches(DATA_STEPS, DATA_VAL_BATCHES)
+        and resident and "MB" in resident[0]
+        and not list(project.rglob("*.cts")),
+        f"device_data cli: launched {launches}, log {messages}",
+    )
+    record["cli"] = {"train_1_epoch_s": cli_s, "log": resident[0],
+                     "launches": launches}
+    mark("loader_save_latlon_cli")
+    record["part_s"] = part_s
+    record["seconds"] = time.perf_counter() - phase_start
+    emit(record)
+
+
 def kernel_entry(name, source, replaces, launches, summary) -> dict:
     return {
         "name": name,
@@ -3591,6 +4198,7 @@ def main() -> int:
         phase_transfer(fit_result, Path(tmp))
         phase_cli(Path(tmp))
         phase_model_options(smi, Path(tmp))
+        phase_device_data(smi, Path(tmp))
 
     fwd_src = "cultionet_tpu_torch/ops/csrc/na2d_fwd.cu"
     bwd_src = "cultionet_tpu_torch/ops/csrc/na2d_bwd.cu"

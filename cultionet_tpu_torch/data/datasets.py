@@ -10,10 +10,8 @@ parallel dimension audit, and host augmentation: with probability ``augment_prob
 labelled chip goes through one augmenter drawn from ``augmentations``
 (``augment/``), from the dataset's numpy generator in the JAX package's
 order. All host work runs on CPU numpy arrays and tensors; a chip leaves as
-a ``Batch`` of CPU tensors.
-
-Not ported (raises ``NotImplementedError``): reference joblib ``.pt``
-chips.
+a ``Batch`` of CPU tensors. Reference joblib ``data*.pt`` chips are listed
+and read beside the ``.npz`` ones (``Batch.from_reference_file``).
 """
 
 import typing as T

@@ -24,7 +24,10 @@ Deliberate differences: ``export --platform`` takes ``cuda`` or ``cpu``
 (the artifact runs on the device it was exported on), not JAX's StableHLO
 platforms. Not ported yet (each raises ``NotImplementedError``):
 ``import-torch`` and more than one predict device; ``train`` refuses the
-options ``fit`` does not run yet (``train/fit.py::check_ported``).
+options ``fit`` does not run yet (``train/fit.py::check_ported``: more
+than one device, FSDP). ``--use-chipstore stream|hbm|auto``,
+``--device-augment`` and ``--device-augment-noise`` run the device data
+path (``train/fit.py``).
 """
 
 import argparse

@@ -21,11 +21,20 @@ smallest weights after the epochs (``prune.py``), before the weight
 averaging, as the JAX loop does. ``pretrained_state`` with ``finetune``
 is transfer learning (``model.py::fit_transfer``).
 
+The device data path (``use_chipstore``) trains from raw int16 chips:
+"stream" (or True) reads them from a chipstore file through the native
+loader (``data/chipstore.py``), "hbm" keeps the whole train split on the
+device and gathers each batch there (``data/device_cache.py``), and
+"auto" takes "hbm" when the split fits half the device's memory. The train
+step then dequantizes, clips, augments (``device_augment``,
+``device_augment_noise``; these also apply on the host path) and
+z-scores on the device; host augmenters do not run, and validation stays
+on the host loader.
+
 Every model option of the JAX configuration builds
 (``model_from_kwargs``), ``remat`` included. Not ported yet (each raises
-``NotImplementedError`` in ``check_ported``): in-step augmentation, the
-chipstore and device-resident paths (``use_chipstore``), more than one
-device or process, and FSDP.
+``NotImplementedError`` in ``check_ported``): more than one device or
+process, and FSDP.
 """
 
 import csv
@@ -39,6 +48,8 @@ import torch
 from torch.func import functional_call
 
 from ..config import CultionetParams
+from ..data.chipstore import ChipstoreLoader
+from ..data.device_cache import DeviceChipCache, gather_batch
 from ..data.loader import ChipLoader
 from ..models import CultioNet
 from ..nn.dropout import dropout_rng
@@ -51,10 +62,14 @@ from .prune import l1_unstructured_prune
 from .step import (
     TrainState,
     class_weights_from_counts,
+    clip_unit,
     create_train_state,
     make_eval_step,
+    make_hbm_train_step,
     make_train_step,
     model_inputs,
+    norm_tensors,
+    zscore,
 )
 
 logger = logging.getLogger(__name__)
@@ -74,12 +89,6 @@ def check_ported(params: CultionetParams) -> None:
     """Raise ``NotImplementedError`` for the options ``fit`` does not run
     yet, naming each."""
     cuts = {
-        "device_augment / device_augment_noise (in-step augmentation)": (
-            params.device_augment or params.device_augment_noise > 0
-        ),
-        "use_chipstore (chipstore and device-resident data)": bool(
-            params.use_chipstore
-        ),
         "devices > 1": params.devices > 1,
         "fsdp": params.fsdp,
         "multi-process training": torch.distributed.is_available()
@@ -216,23 +225,89 @@ def _build_tx(params: CultionetParams, steps_per_epoch: int):
 
 @torch.no_grad()
 def _reestimate_batch_stats(
-    state: TrainState, loader, precision: str, device: torch.device
+    state: TrainState,
+    loader,
+    precision: str,
+    device: torch.device,
+    norm_stats=None,
 ) -> TrainState:
     """Recompute the BatchNorm running statistics under the current (SWA
     averaged) parameters: training-mode forward passes over the train
     loader in the compute type, outputs discarded, dropout drawn from a
-    generator seeded 0 (the JAX pass's ``PRNGKey(0)``)."""
+    generator seeded 0 (the JAX pass's ``PRNGKey(0)``). With ``norm_stats``
+    the loader's raw chips are dequantized, clipped and z-scored as the
+    train step does, without augmentation."""
     model = state.model.train()
     compute_dtype = resolve_dtype(precision)
     generator = torch.Generator(device=device).manual_seed(0)
     run_params = cast_floating(dict(model.named_parameters()), compute_dtype)
+    norm = norm_tensors(norm_stats, device)
     with dropout_rng(generator):
         for batch in loader:
             batch = batch.to(device).dequantize()
+            if norm is not None:
+                batch = zscore(clip_unit(batch), norm)
             functional_call(
                 model, run_params, model_inputs(batch, compute_dtype)
             )
     return state
+
+
+def _device_data_loader(params: CultionetParams, train_ds, device):
+    """The train loader of ``use_chipstore`` and the in-step
+    normalization statistics: a ``DeviceChipCache`` under "hbm" (and
+    under "auto" when the split fits), else a ``ChipstoreLoader`` whose
+    store goes beside the checkpoint (or under the dataset's ``cache/``).
+
+    Raises ``ValueError`` for ``log_transform`` (the step does not apply
+    it) and for ``use_latlon`` with a resident split (its gather carries no
+    coordinates; the JAX package fails at its first step)."""
+    mode = params.use_chipstore
+    if train_ds.log_transform:
+        raise ValueError("use_chipstore does not support log_transform")
+    if params.augment_prob > 0 and not params.device_augment:
+        logger.warning(
+            "use_chipstore skips host augmenters; set "
+            "device_augment=True for in-step augmentation"
+        )
+    norm_stats = None
+    if train_ds.norm_values is not None:
+        nv = train_ds.norm_values
+        norm_stats = (nv.dataset_mean, nv.dataset_std)
+    if mode == "hbm" or (
+        mode == "auto" and DeviceChipCache.fits(train_ds, device=device)
+    ):
+        if params.use_latlon:
+            raise ValueError(
+                f"use_chipstore={mode!r} trains from a device-resident "
+                "split, whose batches carry no lat/lon; use_latlon needs "
+                "use_chipstore='stream'"
+            )
+        cache = DeviceChipCache(
+            train_ds,
+            batch_size=params.batch_size,
+            seed=params.random_seed,
+            device=device,
+        )
+        logger.info(
+            f"device-resident dataset: {cache.num_chips} chips, "
+            f"{cache.resident_bytes / 1e6:.0f} MB on {device}"
+        )
+        return cache, norm_stats
+    cache_dir = (
+        Path(params.ckpt_file).parent
+        if params.ckpt_file is not None
+        else Path(train_ds.root) / "cache"
+    )
+    loader = ChipstoreLoader(
+        train_ds,
+        batch_size=params.batch_size,
+        cache_path=cache_dir / "train.cts",
+        seed=params.random_seed,
+        num_threads=max(2, params.load_batch_workers),
+        device=device,
+    )
+    return loader, norm_stats
 
 
 def _load_pretrained(
@@ -313,12 +388,19 @@ def fit(
             spatial_balance=params.spatial_partitions is not None,
         )
     train_ds.augment_prob = params.augment_prob
-    train_loader = ChipLoader(
-        train_ds,
-        batch_size=params.batch_size,
-        shuffle=True,
-        drop_last=True,
-        device=device,
+    norm_stats = None
+    if params.use_chipstore:
+        train_loader, norm_stats = _device_data_loader(params, train_ds, device)
+    else:
+        train_loader = ChipLoader(
+            train_ds,
+            batch_size=params.batch_size,
+            shuffle=True,
+            drop_last=True,
+            device=device,
+        )
+    hbm_cache = (
+        train_loader if isinstance(train_loader, DeviceChipCache) else None
     )
     val_loader = ChipLoader(val_ds, batch_size=params.batch_size, device=device)
     steps_per_epoch = max(1, len(train_loader))
@@ -382,8 +464,21 @@ def fit(
         class_weights=class_weights,
         device=device,
     )
-    train_step = make_train_step(**step_kwargs)
     eval_step = make_eval_step(**step_kwargs)
+    train_kwargs = dict(
+        step_kwargs,
+        device_augment=params.device_augment,
+        device_augment_noise=params.device_augment_noise,
+        norm_stats=norm_stats,
+    )
+    if hbm_cache is not None:
+        hbm_step = make_hbm_train_step(**train_kwargs)
+
+        def train_step(state, batch, generator):
+            return hbm_step(state, hbm_cache.arrays, batch.indices, generator)
+
+    else:
+        train_step = make_train_step(**train_kwargs)
 
     history: T.List[T.Dict[str, float]] = []
     best_score = float("inf")
@@ -487,8 +582,18 @@ def fit(
         with torch.no_grad():
             for n, p in state.model.named_parameters():
                 p.copy_(swa_params[n])
+        refit_batches = train_loader
+        if hbm_cache is not None:
+            # Real batches of the resident split's next epoch.
+            refit_batches = (
+                gather_batch(hbm_cache.arrays, b.indices) for b in hbm_cache
+            )
         state = _reestimate_batch_stats(
-            state, train_loader, params.compute_precision, device
+            state,
+            refit_batches,
+            params.compute_precision,
+            device,
+            norm_stats=norm_stats,
         )
         if ckpt is not None:
             ckpt.save_last(

@@ -6,15 +6,16 @@ and update the state in place:
 - ``create_train_state``: the fp32 model (master weights and BatchNorm
   running statistics) on the device, bound to its optimizer.
 - ``make_train_step``: ``step(state, batch, generator) -> (state, logs)``.
-  Forward in the compute type (bf16 copies of the fp32 parameters under
+  The in-step input pipeline (dequantize; with ``norm_stats`` clip to
+  [1e-9, 1]; dihedral and noise augmentation; z-score), then the forward
+  in the compute type (bf16 copies of the fp32 parameters under
   "16-mixed"), multi-task loss in fp32, backward into fp32 gradients, one
-  optimizer step; every dropout draws from ``generator``.
+  optimizer step; the augmentation and every dropout draw from
+  ``generator``.
+- ``make_hbm_train_step``: the same step over a device-resident split
+  (``data/device_cache.py``), from a (B,) index vector.
 - ``make_eval_step``: the loss, the metric suite and the composite score.
 - ``make_predict_step``: the model's outputs for a batch of windows.
-
-Not ported yet (they come with the data pipeline): in-step augmentation
-(``device_augment``), in-step normalization (``norm_stats``) and the step
-over a device-resident dataset (``make_hbm_train_step``).
 """
 
 import copy
@@ -26,7 +27,9 @@ import torch
 from torch import nn
 from torch.func import functional_call
 
+from ..augment.device import augment_batch_on_device
 from ..data.batch import Batch, dequantize
+from ..data.device_cache import gather_batch
 from ..enums import InferenceNames, LossTypes, ValidationNames
 from ..nn.dropout import dropout_rng
 from ..nn.init import init_parameters_
@@ -181,6 +184,34 @@ def forward_loss(
     return calc_loss(outputs, batch, **loss_kwargs)
 
 
+def clip_unit(batch: Batch) -> Batch:
+    """x and bdist clipped to [1e-9, 1], as ``ChipDataset`` clips the
+    chips of the host path: raw chips of the device data path then see its
+    range."""
+    return batch.replace(
+        x=batch.x.clamp(1e-9, 1.0),
+        bdist=None if batch.bdist is None else batch.bdist.clamp(1e-9, 1.0),
+    )
+
+
+def zscore(batch: Batch, norm: T.Tuple[Tensor, Tensor]) -> Batch:
+    """x z-scored with the fp32 per-channel ``norm`` (mean, std)."""
+    return batch.replace(x=(batch.x - norm[0]) / norm[1])
+
+
+def norm_tensors(
+    norm_stats: T.Optional[T.Tuple[T.Any, T.Any]], device: torch.device
+) -> T.Optional[T.Tuple[Tensor, Tensor]]:
+    """``norm_stats`` (per-channel mean, std) as fp32 tensors on
+    ``device``."""
+    if norm_stats is None:
+        return None
+    return tuple(
+        torch.as_tensor(np.asarray(v), dtype=torch.float32, device=device)
+        for v in norm_stats
+    )
+
+
 def make_train_step(
     loss_name: str = LossTypes.TANIMOTO_COMBINED,
     edge_class: int = 2,
@@ -197,27 +228,43 @@ def make_train_step(
     """Build a train step ``(state, batch, generator) -> (state, logs)``
     on ``device``; the state is updated in place and returned.
 
+    The batch (int16 x 10000 records or floats) is dequantized on the
+    device. With ``norm_stats`` = (mean, std) per channel, x and bdist are
+    first clipped to [1e-9, 1], and x is z-scored after the augmentation.
+    ``device_augment`` draws a dihedral transform per sample and
+    ``device_augment_noise`` > 0 adds Gaussian noise of that std to x
+    (``augment/device.py``), both from ``generator`` before the forward.
+
     With ``precision="bf16"`` (or "16-mixed") the forward and backward run
     in bf16 on bf16 copies of the fp32 parameters; gradients land in fp32
     and the optimizer updates the fp32 weights. BatchNorm running
     statistics stay fp32 (``nn/blocks.py::BatchNorm``). The logs hold
     0-d tensors on the device (reading them waits for the step).
     """
-    if device_augment or device_augment_noise > 0 or norm_stats is not None:
-        raise NotImplementedError(
-            "in-step augmentation and normalization come with the data "
-            "pipeline; they are not ported yet"
-        )
     device = resolve_device(device)
     compute_dtype = resolve_dtype(precision)
+    norm = norm_tensors(norm_stats, device)
+    augment = device_augment or device_augment_noise > 0
 
     def train_step(
         state: TrainState, batch: Batch, generator: torch.Generator
     ) -> T.Tuple[TrainState, T.Dict[str, Tensor]]:
         _check_generator(generator, device)
+        batch = batch.to(device).dequantize()
+        if norm is not None:
+            batch = clip_unit(batch)
+        if augment:
+            batch = augment_batch_on_device(
+                batch,
+                generator,
+                dihedral=device_augment,
+                noise_sigma=device_augment_noise,
+            )
+        if norm is not None:
+            batch = zscore(batch, norm)
         loss, report = forward_loss(
             state.model,
-            batch.to(device),
+            batch,
             generator,
             compute_dtype,
             loss_name=loss_name,
@@ -231,6 +278,27 @@ def make_train_step(
         return state, {name: value.detach() for name, value in logs.items()}
 
     return train_step
+
+
+def make_hbm_train_step(
+    **train_kwargs,
+) -> T.Callable[
+    [TrainState, T.Mapping[str, T.Optional[Tensor]], Tensor, torch.Generator],
+    T.Tuple[TrainState, T.Dict[str, Tensor]],
+]:
+    """A train step over a device-resident split:
+    ``step(state, arrays, indices, generator)`` gathers the (B,) chip rows
+    ``indices`` from the resident int16 ``arrays``
+    (``data/device_cache.py``) on the device, then runs
+    ``make_train_step(**train_kwargs)`` on them. The index vector is all
+    that a step needs from the host."""
+    inner = make_train_step(**train_kwargs)
+    device = resolve_device(train_kwargs.get("device", "cuda"))
+
+    def step(state, arrays, indices, generator):
+        return inner(state, gather_batch(arrays, indices.to(device)), generator)
+
+    return step
 
 
 def evaluate_predictions(

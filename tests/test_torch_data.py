@@ -80,8 +80,13 @@ def test_chips_read_identically_across_packages(tmp_path):
     meta = Batch.read_meta(tmp_path / "port.npz")
     assert meta.batch_id == port.batch_id
     assert torch.equal(meta.left, port.left) and meta.x.shape == (2, 0)
-    with pytest.raises(NotImplementedError, match=".pt"):
-        Batch.from_file(tmp_path / "chip.pt")
+    # Reference joblib .pt chips read as JAX reads them
+    # (tests/test_torch_reference_chips.py holds the reader field by field).
+    joblib = pytest.importorskip("joblib")
+    joblib.dump({"x": np.ones((1, 2, 3, 4, 4), "int16")}, tmp_path / "chip.pt")
+    chip = Batch.from_file(tmp_path / "chip.pt")
+    assert chip.x.shape == (1, 3, 4, 4, 2) and chip.batch_id == ("chip.pt",)
+    assert_batches_equal(chip, JaxBatch.from_file(tmp_path / "chip.pt"))
 
 
 def test_synthetic_batch_matches_jax():

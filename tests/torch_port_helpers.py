@@ -46,6 +46,28 @@ def seeded_variables(module, *args, seed: int = 0, **kwargs) -> dict:
     return {c: visit(tree, c) for c, tree in shapes.items()}
 
 
+def write_chip_files(
+    root, num: int, seed: int, packed: bool, num_time: int = 6, size: int = 12
+) -> None:
+    """``num`` seeded chips (3 bands, labels, boundary distances, bounds)
+    under ``root/processed`` as ``.npz`` files; with ``packed`` x and bdist
+    are int16 x 10000, as the chip creator writes them."""
+    from cultionet_tpu.data.synthetic import create_batch
+
+    rng = np.random.default_rng(seed)
+    for i in range(num):
+        batch = create_batch(
+            num_channels=3, num_time=num_time, height=size, width=size,
+            rng=rng,
+        )
+        if packed:
+            batch = batch.replace(
+                x=np.round(np.asarray(batch.x) * 10000).astype("int16"),
+                bdist=np.round(np.asarray(batch.bdist) * 10000).astype("int16"),
+            )
+        batch.to_file(root / "processed" / f"data_{i:03d}.npz")
+
+
 def jax_transformer_model(hidden, in_time=6, size=44, dropout=0.2, seed=None):
     """The JAX CultioNet with the transformer temporal front end and its
     seeded variables (``seeded_variables``, seed ``hidden`` by default)."""
