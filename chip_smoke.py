@@ -229,6 +229,30 @@ on the first phase that fails:
     ``train --use-chipstore auto --device-augment --epochs 1`` on the
     project: the resident split chosen and its size logged, the launches
     of a 1-epoch fit.
+24. data_parallel (``parallel/``, the port's data-parallel path, on the
+    one card; fp32, TF32 off, cuDNN deterministic, the CLI chip size):
+    (b) two ranks on the card over gloo (NCCL refuses two ranks on one
+    device) with CUDA tensors, each its block of 4 of a seeded batch of 8
+    chips: the sharded dropout-0 step's loss, parameters and the gradients
+    its optimizer receives against the single-process step on all 8 (loss
+    rtol 1e-5, parameters within 1e-5, gradients as ``require_grads_close``
+    holds them: Adam and the clip hide a factor common to every
+    gradient), 3 na2d_fwd and 3 na2d_bwd per rank; FSDP2
+    (``fsdp_min_size`` 2**16) on the two ranks, held the same way, its
+    sharded submodules named (a
+    refusal is printed on its own line and fails the phase); the
+    CLI-default "16-mixed" sharded step at dropout 0.2, 3 warm-up and 10
+    timed steps per rank: 3 na2d_fwd_drop and 3 na2d_bwd_drop per step
+    per rank, the step's ms and the gradient all-reduce's share of it.
+    (a) an NCCL group of one in this process: a 1-epoch ``fit`` (the fit
+    phase's chips and training defaults in fp32) through the sharded step
+    equal bit for bit to the same fit without a group (history, weights,
+    statistics, optimizer state), per train step 3 na2d_fwd_drop and 3
+    na2d_bwd_drop, per validation batch 3 na2d_fwd. (c) FSDP2 at world
+    size 1 in that group: one dropout-0 fp32 step against the plain step
+    (parameters within 1e-6, gradients as in (b)). (d) ``ScenePredictor`` through its multi-device split
+    (one replica) equal bit for bit to today's single-device predict, 12
+    na2d_fwd; ``devices=2`` refused on a machine of one card.
 
 Kernel times (``ms``, ``library_ms``) are device times: ``device_ms``
 queues 20 calls behind a sleep kernel so the card runs them back to back
@@ -237,8 +261,8 @@ and the host's dispatch is hidden; ``call_ms`` (NA kernels) and
 dispatch included where the card is faster than the host.
 
 Kernel launch counts are zeroed just before each path (8, 10, 12, 13,
-16-18, 20-23; the serving process of 19 zeroes its own) and read just
-after. Then the kernels line (seven kernels), and last
+16-18, 20-24; the serving process of 19 and the ranks of 24 zero their
+own) and read just after. Then the kernels line (seven kernels), and last
 ``{"ok": true, "device": {...}}``. TF32 is off for matmuls and
 convolutions throughout, so fp32 comparisons hold fp32 arithmetic.
 """
@@ -4131,6 +4155,367 @@ def phase_device_data(smi: str, workdir) -> None:
     emit(record)
 
 
+DP_BATCH = 8  # the global batch of the two-rank checks: 4 chips a rank
+DP_TIMED_STEPS = 10
+
+
+def dp_batch():
+    from cultionet_tpu_torch.data.synthetic import create_batch
+
+    return create_batch(
+        num_channels=3, num_time=12, height=100, width=100,
+        batch_size=DP_BATCH, rng=np.random.default_rng(3),
+    )
+
+
+def deterministic_fp32() -> None:
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cudnn.deterministic = True
+    torch.backends.cudnn.benchmark = False
+
+
+def dp_whole(tensor):
+    """A DTensor (an FSDP2 ``Shard(0)`` shard, ``torch.chunk``'s blocks)
+    gathered whole by one plain ``all_gather`` of equal padded blocks; any
+    other tensor as it is. The two ranks of phase_data_parallel share the
+    one card over gloo (NCCL refuses two ranks on one device), and
+    DTensor's own ``full_tensor`` goes through functional collectives,
+    which crash with gloo on CUDA tensors (torch 2.11). A group of one
+    rank per card (NCCL) uses ``full_tensor``, as the port does."""
+    from cultionet_tpu_torch.parallel.mesh import is_sharded
+
+    if not is_sharded(tensor):
+        return tensor
+    import torch.distributed as dist
+
+    world = dist.get_world_size()
+    local = tensor.to_local()
+    size = tensor.shape[0]
+    padded = local.new_zeros((-(-size // world), *tensor.shape[1:]))
+    padded[: local.shape[0]] = local
+    parts = [torch.empty_like(padded) for _ in range(world)]
+    dist.all_gather(parts, padded)
+    return torch.cat(parts)[:size]
+
+
+def keep_gradients(state) -> dict:
+    """Wrap ``state.optimizer.step`` so that its next call first copies
+    every parameter's gradient, whole (a collective under FSDP2), to the
+    host into the returned dict: the gradient the optimizer sees, after the
+    all-reduce and before the clip. Adam's update and the clip hide a
+    factor common to every gradient; this does not."""
+    grads = {}
+    update = state.optimizer.step
+
+    def step_keeping_gradients():
+        grads.update(
+            {
+                n: dp_whole(p.grad.detach()).cpu()
+                for n, p in state.model.named_parameters()
+                if p.grad is not None
+            }
+        )
+        return update()
+
+    state.optimizer.step = step_keeping_gradients
+    return grads
+
+
+def dp_step_result(state, logs, grads) -> dict:
+    return {
+        "loss": float(logs["loss"]),
+        "state": {
+            n: dp_whole(t).detach().cpu()
+            for n, t in state.model.state_dict().items()
+        },
+        "grads": grads,
+    }
+
+
+def dp_rank_main(rank: int, port: int, out_dir: str) -> None:
+    """Rank ``rank`` of phase_data_parallel's two: both on the one card,
+    joined over gloo."""
+    import torch.distributed as dist
+
+    torch.cuda.set_device(0)
+    dist.init_process_group(
+        "gloo", init_method=f"tcp://127.0.0.1:{port}", world_size=2, rank=rank
+    )
+    try:
+        dp_rank(torch.device("cuda", 0), out_dir)
+        dist.barrier()
+    finally:
+        dist.destroy_process_group()
+
+
+def dp_rank(device, out_dir: str) -> None:
+    """One of the two ranks of phase_data_parallel (gloo, both on the
+    card): the dropout-0 fp32 sharded step, the same under FSDP2, then the
+    CLI-default step timed."""
+    from cultionet_tpu_torch.parallel import (
+        make_sharded_train_step,
+        rank_and_world,
+        shard_batch,
+        shard_state_fsdp,
+    )
+    from cultionet_tpu_torch.parallel.mesh import reduce_gradients
+    from cultionet_tpu_torch.train.step import create_train_state
+
+    import faulthandler
+
+    faulthandler.enable()
+    deterministic_fp32()
+    rank, _ = rank_and_world()
+    local = shard_batch(dp_batch()).to(device)
+    result = {"rank": rank}
+
+    model, tx = train_setup(0.0)
+    state = create_train_state(model, tx, seed=0, device=device)
+    step = make_sharded_train_step(precision="fp32", device=device)
+    grads = keep_gradients(state)
+    zero_launches()
+    state, logs = step(state, local, torch.Generator(device).manual_seed(0))
+    result["dp_launches"] = read_launches()
+    result["dp"] = dp_step_result(state, logs, grads)
+
+    model, tx = train_setup(0.0)
+    state = create_train_state(model, tx, seed=0, device=device)
+    try:
+        result["fsdp_modules"] = shard_state_fsdp(state)
+        state.optimizer = tx.init(state.model.parameters())
+        grads = keep_gradients(state)
+        state, logs = step(state, local, torch.Generator(device).manual_seed(0))
+        result["fsdp"] = dp_step_result(state, logs, grads)
+    except Exception as exc:  # reported by the phase, which then fails
+        result["fsdp_error"] = f"{type(exc).__name__}: {exc}"
+    del state
+
+    model, tx = train_setup(0.2)
+    state = create_train_state(model, tx, seed=0, device=device)
+    step = make_sharded_train_step(precision="16-mixed", device=device)
+    generator = torch.Generator(device).manual_seed(rank)
+    for _ in range(TRAIN_WARMUP):
+        step(state, local, generator)
+    zero_launches()
+    losses = []
+    torch.cuda.synchronize()
+    start = time.perf_counter()
+    for _ in range(DP_TIMED_STEPS):
+        state, logs = step(state, local, generator)
+        losses.append(logs["loss"])
+    torch.cuda.synchronize()
+    result["step_ms"] = (time.perf_counter() - start) / DP_TIMED_STEPS * 1e3
+    result["launches"] = read_launches()
+    result["losses"] = [float(v) for v in losses]
+    for p in state.model.parameters():
+        p.grad = torch.zeros_like(p)
+    reduce_gradients(state.model)
+    torch.cuda.synchronize()
+    start = time.perf_counter()
+    for _ in range(DP_TIMED_STEPS):
+        reduce_gradients(state.model)
+    torch.cuda.synchronize()
+    result["allreduce_ms"] = (
+        (time.perf_counter() - start) / DP_TIMED_STEPS * 1e3
+    )
+    result["grad_bytes"] = sum(
+        p.numel() * 4 for p in state.model.parameters()
+    )
+    torch.save(result, Path(out_dir) / f"rank{rank}.pt")
+
+
+def require_state_close(label: str, got: dict, want: dict, atol: float):
+    worst = 0.0
+    for name, value in want.items():
+        if not value.is_floating_point():
+            continue
+        diff = float((got[name].float() - value.float()).abs().max())
+        worst = max(worst, diff)
+        require(diff <= atol, f"{label}: {name} differs by {diff} > {atol}")
+    return worst
+
+
+def phase_data_parallel(smi: str, workdir) -> None:
+    """Item 24 of the module docstring: the data-parallel path on one
+    card."""
+    import copy
+
+    import torch.distributed as dist
+
+    from cultionet_tpu_torch.model import fit
+    from cultionet_tpu_torch.parallel.distributed import free_port
+    from cultionet_tpu_torch.parallel.mesh import is_sharded
+    from cultionet_tpu_torch.parallel import (
+        make_sharded_train_step,
+        shard_state_fsdp,
+    )
+    from cultionet_tpu_torch.predict import ScenePredictor
+    from cultionet_tpu_torch.train.step import (
+        create_train_state,
+        make_train_step,
+    )
+
+    phase_start = time.perf_counter()
+    saved = (torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark)
+    deterministic_fp32()
+    record = {"phase": "data_parallel", "smi": smi}
+
+    # (b) two ranks on the one card over gloo, and FSDP2 on them.
+    out = Path(workdir) / "dp_ranks"
+    out.mkdir(parents=True, exist_ok=True)
+    start = time.perf_counter()
+    torch.multiprocessing.start_processes(
+        dp_rank_main, args=(free_port(), str(out)), nprocs=2, join=True,
+        start_method="spawn",
+    )
+    record["ranks_s"] = time.perf_counter() - start
+    ranks = [torch.load(out / f"rank{r}.pt", weights_only=False) for r in (0, 1)]
+    model, tx = train_setup(0.0)
+    state = create_train_state(model, tx, seed=0, device="cuda")
+    grads = keep_gradients(state)
+    single_state, logs = make_train_step(precision="fp32", device="cuda")(
+        state, dp_batch(), torch.Generator("cuda").manual_seed(0)
+    )
+    single = dp_step_result(single_state, logs, grads)
+    del state, single_state
+    want_na = {name: 0 for name in read_launches()}
+    want_na["na2d_fwd"] = want_na["na2d_bwd"] = 3
+    want_drop = {name: 0 for name in read_launches()}
+    want_drop["na2d_fwd_drop"] = want_drop["na2d_bwd_drop"] = 3 * DP_TIMED_STEPS
+    for got in ranks:
+        r = got["rank"]
+        require(
+            abs(got["dp"]["loss"] - single["loss"]) <= 1e-5 * abs(single["loss"]),
+            f"data_parallel: rank {r} loss {got['dp']['loss']} != {single['loss']}",
+        )
+        record[f"rank{r}_dp_max_abs_err"] = require_state_close(
+            f"data_parallel rank {r}", got["dp"]["state"], single["state"], 1e-5
+        )
+        record[f"rank{r}_dp_grads"] = require_grads_close(
+            f"data_parallel rank {r}", got["dp"]["grads"], single["grads"]
+        )
+        require(got["dp_launches"] == want_na,
+                f"data_parallel: rank {r} step launches {got['dp_launches']}")
+        if "fsdp_error" in got:
+            print(f"data_parallel: FSDP2 refused two gloo ranks on one card: "
+                  f"{got['fsdp_error']}", flush=True)
+            require(False, "FSDP2 on two ranks failed")
+        require(got["fsdp_modules"], "data_parallel: FSDP2 sharded nothing")
+        require(
+            abs(got["fsdp"]["loss"] - single["loss"]) <= 1e-5 * abs(single["loss"]),
+            f"data_parallel: rank {r} FSDP loss {got['fsdp']['loss']}",
+        )
+        record[f"rank{r}_fsdp_max_abs_err"] = require_state_close(
+            f"data_parallel FSDP rank {r}", got["fsdp"]["state"],
+            single["state"], 1e-5,
+        )
+        record[f"rank{r}_fsdp_grads"] = require_grads_close(
+            f"data_parallel FSDP rank {r}", got["fsdp"]["grads"],
+            single["grads"],
+        )
+        require(got["launches"] == want_drop,
+                f"data_parallel: rank {r} timed launches {got['launches']}")
+        require(all(np.isfinite(got["losses"])), "data_parallel: a loss is not finite")
+        record[f"rank{r}_step_ms"] = got["step_ms"]
+        record[f"rank{r}_allreduce_ms"] = got["allreduce_ms"]
+        record[f"rank{r}_allreduce_share"] = got["allreduce_ms"] / got["step_ms"]
+        record[f"rank{r}_launches_per_step"] = {
+            k: v // DP_TIMED_STEPS for k, v in got["launches"].items() if v
+        }
+    record["fsdp_modules"] = len(ranks[0]["fsdp_modules"])
+    record["grad_bytes"] = ranks[0]["grad_bytes"]
+
+    # (a) fit through the sharded step in an NCCL group of one.
+    root = Path(workdir) / "dp_fit"
+    write_fit_chips(root)
+
+    def fp32_params(ckpt):
+        params = fit_params(root, ckpt, None, 1)
+        params.precision = "32"
+        return params
+
+    torch.cuda.set_device(0)
+    dist.init_process_group(
+        "nccl", init_method=f"tcp://127.0.0.1:{free_port()}", world_size=1,
+        rank=0,
+    )
+    try:
+        zero_launches()
+        grouped = fit(fp32_params(root / "grouped"), device="cuda")
+        record["fit_launches"] = read_launches()
+        require(record["fit_launches"] == fit_launches(4, 1),
+                f"data_parallel: fit launches {record['fit_launches']}")
+
+        # (c) FSDP2 at world size 1.
+        model, tx = train_setup(0.0)
+        state = create_train_state(model, tx, seed=0, device="cuda")
+        plain_state = copy.deepcopy(state)
+        plain_state.optimizer = tx.init(plain_state.model.parameters())
+        names = shard_state_fsdp(state)
+        require(names and any(is_sharded(p) for p in state.model.parameters()),
+                "data_parallel: FSDP2 at world size 1 sharded nothing")
+        state.optimizer = tx.init(state.model.parameters())
+        batch = train_batch()
+        grads = keep_gradients(state)
+        sharded_state, logs = make_sharded_train_step(
+            precision="fp32", device="cuda"
+        )(state, batch, torch.Generator("cuda").manual_seed(0))
+        got = dp_step_result(sharded_state, logs, grads)
+        grads = keep_gradients(plain_state)
+        plain_state, logs = make_train_step(precision="fp32", device="cuda")(
+            plain_state, batch, torch.Generator("cuda").manual_seed(0)
+        )
+        want = dp_step_result(plain_state, logs, grads)
+        record["fsdp1_max_abs_err"] = require_state_close(
+            "data_parallel FSDP world 1", got["state"], want["state"], 1e-6
+        )
+        record["fsdp1_grads"] = require_grads_close(
+            "data_parallel FSDP world 1", got["grads"], want["grads"]
+        )
+        record["fsdp1_loss_diff"] = abs(got["loss"] - want["loss"])
+        require(record["fsdp1_loss_diff"] <= 1e-6 * abs(want["loss"]),
+                "data_parallel: FSDP world-1 loss differs")
+        del state, sharded_state, plain_state
+    finally:
+        dist.destroy_process_group()
+    plain = fit(fp32_params(root / "plain"), device="cuda")
+    require(grouped.history == plain.history,
+            f"data_parallel: fit history {grouped.history} != {plain.history}")
+    require_states_equal(grouped.state, plain.state)
+    record["fit_loss"] = grouped.history[0]["loss"]
+
+    # (d) predict through the multi-device split, one replica.
+    model = plain.model
+    scene = np.random.default_rng(11).integers(
+        0, 10000, (12, 420, 420, 3)
+    ).astype(np.int16)
+    today = ScenePredictor(model, batch_size=8, precision="fp32", device="cuda")
+    want_raster, _ = today.predict_scene(scene, window_size=100, padding=20)
+    split = ScenePredictor(
+        model, batch_size=8, precision="fp32", device="cuda", devices=1
+    )
+    split.predict_step = split._predict_split
+    zero_launches()
+    got_raster, _ = split.predict_scene(scene, window_size=100, padding=20)
+    record["predict_launches"] = read_launches()
+    require(record["predict_launches"]["na2d_fwd"] == 12,
+            f"data_parallel: predict launches {record['predict_launches']}")
+    require(np.array_equal(got_raster, want_raster),
+            "data_parallel: the split predict differs from today's")
+    record["predict_refusal"] = None
+    try:
+        ScenePredictor(model, device="cuda", devices=torch.cuda.device_count() + 1)
+    except RuntimeError as exc:
+        record["predict_refusal"] = str(exc)
+    require(record["predict_refusal"] is not None,
+            "data_parallel: predict on more cards than present ran")
+
+    torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = saved
+    record["seconds"] = time.perf_counter() - phase_start
+    emit(record)
+
+
 def kernel_entry(name, source, replaces, launches, summary) -> dict:
     return {
         "name": name,
@@ -4199,6 +4584,7 @@ def main() -> int:
         phase_cli(Path(tmp))
         phase_model_options(smi, Path(tmp))
         phase_device_data(smi, Path(tmp))
+        phase_data_parallel(smi, Path(tmp))
 
     fwd_src = "cultionet_tpu_torch/ops/csrc/na2d_fwd.cu"
     bwd_src = "cultionet_tpu_torch/ops/csrc/na2d_bwd.cu"

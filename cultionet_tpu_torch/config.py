@@ -2,11 +2,10 @@
 field-for-field copy of cultionet_tpu/config.py).
 
 Every field of the JAX configuration is here with its default, so a
-configuration written for one package reads in the other. Every model
-field builds, ``remat`` included, and the data path's fields run
-(``use_chipstore``, ``device_augment``, ``device_augment_noise``); the
-device fields the port does not run yet are refused where they are read
-(``train/fit.py::check_ported``), with ``NotImplementedError``.
+configuration written for one package reads in the other. Every field
+runs: the model's (``remat`` included), the data path's
+(``use_chipstore``, ``device_augment``, ``device_augment_noise``) and the
+devices' (``devices``, ``fsdp``, ``fsdp_min_size``: ``train/fit.py``).
 """
 
 import dataclasses

@@ -108,9 +108,10 @@ def load_library() -> ctypes.CDLL:
                 [c_void_p, ctypes.POINTER(c_int64), c_int64]
                 + [c_void_p] * 4,
             ),
-            "cs_prefetch_start": (
+            "cs_prefetch_start_block": (
                 ctypes.c_int,
-                [c_void_p, c_int64, ctypes.c_uint64, ctypes.c_int, ctypes.c_int],
+                [c_void_p, c_int64, c_int64, c_int64, ctypes.c_uint64,
+                 ctypes.c_int, ctypes.c_int],
             ),
             "cs_next_slot": (c_int64, [c_void_p, ctypes.POINTER(c_int64)]),
             "cs_slot_ptrs": (
@@ -326,18 +327,25 @@ class ChipStore:
         num_threads: int,
         max_queue: int,
         num_batches: T.Optional[int] = None,
+        block: T.Optional[T.Tuple[int, int]] = None,
     ) -> T.Iterator[T.Tuple[T.Dict[str, np.ndarray], int]]:
         """``iter_prefetched``'s batches as (numpy views of the slot's x, y,
         bdist and meta, chip count); a slot returns to the workers when
-        the next batch is asked for."""
+        the next batch is asked for. With ``block=(lo, hi)`` a slot holds
+        only the rows [lo, hi) of each shuffled batch: the workers read
+        no other chip."""
         if num_batches is None:
             num_batches = max(1, self.num_chips // batch_size)
-        rc = self.lib.cs_prefetch_start(
-            self.handle, batch_size, seed, num_threads, max_queue
+        lo, hi = (0, batch_size) if block is None else block
+        rc = self.lib.cs_prefetch_start_block(
+            self.handle, batch_size, lo, hi, seed, num_threads, max_queue
         )
         if rc != 0:
-            raise RuntimeError("prefetch already running")
-        shapes = self._shapes(batch_size)
+            raise RuntimeError(
+                f"prefetch already running, or rows [{lo}, {hi}) are not "
+                f"a block of a batch of {batch_size}"
+            )
+        shapes = self._shapes(hi - lo)
         try:
             for _ in range(num_batches):
                 count = ctypes.c_int64(0)
@@ -380,14 +388,17 @@ def build_chipstore_from_dataset(
     dataset,
     path: T.Union[str, Path],
     packed: bool = True,
+    process_index: int = 0,
 ) -> Path:
     """Pack a ChipDataset's raw chips (unscaled and unaugmented: the train
     step dequantizes, augments and normalizes them) into one store file.
 
     The file is named as the JAX package names it: ``path``'s stem, the
-    process index (``-p0-``: the port trains in one process) and a sha1 of
-    the format and the sorted chip paths, so a new split builds a new
-    store. It is rebuilt when a member chip is newer than it.
+    ``process_index`` (``-p0-``; a process of a group that holds its own
+    file stripe passes its rank, so processes sharing a file system never
+    write one file) and a sha1 of the format and the sorted chip paths, so
+    a new split builds a new store. It is rebuilt when a member chip is
+    newer than it.
     """
     path = Path(path)
     files = list(dataset.files)
@@ -395,7 +406,7 @@ def build_chipstore_from_dataset(
     key = hashlib.sha1(
         f"v2|packed={int(packed)}|{key_src}".encode()
     ).hexdigest()[:12]
-    path = path.with_name(f"{path.stem}-p0-{key}{path.suffix}")
+    path = path.with_name(f"{path.stem}-p{process_index}-{key}{path.suffix}")
     if path.exists() and files:
         newest = max(f.stat().st_mtime for f in files)
         if path.stat().st_mtime >= newest:
@@ -450,7 +461,13 @@ class ChipstoreLoader:
     On a card the batch goes through page-locked buffers (``_PinnedRing``,
     kept across epochs), so its copy to the device does not wait and the
     slot returns to the workers at once; on the CPU it is copied out of
-    the slot."""
+    the slot.
+
+    With ``shard=(rank, world)`` each batch is that rank's contiguous
+    block of the global batch of ``batch_size`` (as
+    ``parallel/mesh.py::shard_batch`` cuts it): the workers read and copy
+    only those chips. ``process_index`` names the store file
+    (``build_chipstore_from_dataset``)."""
 
     def __init__(
         self,
@@ -460,12 +477,25 @@ class ChipstoreLoader:
         seed: int = 42,
         num_threads: int = 4,
         device: T.Union[str, torch.device] = "cpu",
+        shard: T.Optional[T.Tuple[int, int]] = None,
+        process_index: int = 0,
     ):
         self.batch_size = batch_size
         self.seed = seed
         self.num_threads = num_threads
         self.device = torch.device(device)
-        self.path = build_chipstore_from_dataset(dataset, cache_path)
+        self.block = None
+        if shard is not None:
+            rank, world = shard
+            if batch_size % world:
+                raise ValueError(
+                    f"a batch of {batch_size} does not split over {world} ranks"
+                )
+            self.block = (rank * batch_size // world,
+                          (rank + 1) * batch_size // world)
+        self.path = build_chipstore_from_dataset(
+            dataset, cache_path, process_index=process_index
+        )
         with ChipStore(self.path) as store:
             self.num_chips = len(store)
         self._epoch = 0
@@ -488,6 +518,7 @@ class ChipstoreLoader:
                 self.num_threads,
                 max_queue=4,
                 num_batches=len(self),
+                block=self.block,
             ):
                 if self._ring is None:
                     tensors = {

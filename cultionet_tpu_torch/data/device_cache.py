@@ -18,8 +18,10 @@ both give the same records.
   index batches (``IndexBatch``), in the JAX package's order.
 - ``gather_batch``: the batch of x, y and bdist rows at the indices.
 
-One device: the JAX package's mesh (arrays replicated, indices sharded)
-is not ported.
+Data parallel, as JAX's mesh does it (arrays replicated, indices
+sharded): each rank that ``fit`` launches holds the whole split and
+gathers its block of every index batch (``parallel/mesh.py::
+shard_batch``).
 """
 
 import typing as T

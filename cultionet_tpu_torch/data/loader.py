@@ -5,6 +5,12 @@ One background thread reads and collates the chips of the next batches
 while the caller trains on the current one. For a CUDA ``device`` the
 thread collates into page-locked host memory and starts the host-to-device
 copy with ``non_blocking=True``, so the copy overlaps the previous step.
+
+Data-parallel loading: ``shard=(rank, world)`` makes a loader deliver
+only its rank's contiguous block of each global batch (every rank draws
+the same shuffle), and ``process_local_selection`` is the JAX multi-host
+rule of which chip files a process of an externally launched group
+loads.
 """
 
 import queue
@@ -20,6 +26,15 @@ from .datasets import ChipDataset
 _DONE = object()
 
 
+def process_local_selection(
+    num_files: int, process_index: int, process_count: int
+) -> np.ndarray:
+    """Strided file assignment for multi-process loading: process p takes
+    files p, p+P, p+2P, ... so every chip belongs to exactly one process
+    and per-process counts differ by at most one."""
+    return np.arange(process_index, num_files, process_count)
+
+
 class ChipLoader:
     """Iterate a ChipDataset in collated batches with background prefetch.
 
@@ -27,7 +42,9 @@ class ChipLoader:
     the loader draws ``rng.permutation`` once when ``shuffle`` is set, from
     ``rng`` (default: a numpy generator seeded with the dataset's
     ``random_seed``). ``device`` is where the batches are delivered
-    (default: the CPU).
+    (default: the CPU). With ``shard=(rank, world)`` each batch is block
+    ``rank`` of ``world`` contiguous blocks of the global batch, and only
+    that block is read (``batch_size`` must divide by ``world``).
     """
 
     def __init__(
@@ -39,8 +56,15 @@ class ChipLoader:
         prefetch: int = 2,
         rng: T.Optional[np.random.Generator] = None,
         device: T.Union[str, torch.device] = "cpu",
+        shard: T.Optional[T.Tuple[int, int]] = None,
     ):
+        if shard is not None and batch_size % shard[1]:
+            raise ValueError(
+                f"batch_size {batch_size} does not split over {shard[1]} "
+                "ranks"
+            )
         self.dataset = dataset
+        self.shard = shard
         self.batch_size = batch_size
         self.shuffle = shuffle
         self.drop_last = drop_last
@@ -64,6 +88,12 @@ class ChipLoader:
         ]
         if self.drop_last and batches and len(batches[-1]) < self.batch_size:
             batches = batches[:-1]
+        if self.shard is not None:
+            rank, world = self.shard
+            batches = [
+                b[rank * len(b) // world : (rank + 1) * len(b) // world]
+                for b in batches
+            ]
         return batches
 
     def skip_epochs(self, epochs: int) -> None:

@@ -3,8 +3,8 @@ cultionet_tpu/models/temporal.py).
 
 - ``PreTimeReduction`` (``temporal_encoder="conv"``): the JAX package packs
   (T, C) onto the TPU lanes and runs both time convs as matmuls; here they
-  are plain ``nn.Conv3d``s with ``(kT, 1, 1)`` kernels, the same parameters
-  and the same math.
+  are ``nn.Conv3d``s with ``(kT, 1, 1)`` kernels (``TimeConv``), the same
+  parameters and the same math.
 - ``TemporalTransformer`` (``temporal_encoder="transformer"``): the math of
   the JAX module's unpacked path, on pixel-major tokens (B*H*W, T, D); its
   attention runs through ``ops/temporal.py::temporal_attention`` (the CUDA
@@ -13,6 +13,7 @@ cultionet_tpu/models/temporal.py).
 
 import numpy as np
 import torch
+import torch.nn.functional as F
 from torch import nn
 
 from ..nn.activations import get_activation
@@ -22,6 +23,19 @@ from ..nn.init import LecunLinear
 from ..ops.temporal import temporal_attention
 
 Tensor = torch.Tensor
+
+
+class TimeConv(nn.Conv3d):
+    """An ``nn.Conv3d`` with a ``(kT, 1, 1)`` kernel, computed as the 2-D
+    convolution of (B, C, T, H*W) with the (O, C, kT, 1) kernel: the same
+    parameters and the same sums. torch's CPU bf16 ``conv3d`` weight
+    gradient (oneDNN) crashes or never returns for a 1x1 spatial kernel
+    from about 99x99 pixels on (torch 2.13.0+cpu); the 2-D one does not."""
+
+    def forward(self, x: Tensor) -> Tensor:
+        b, c, t, h, w = x.shape
+        y = F.conv2d(x.reshape(b, c, t, h * w), self.weight.squeeze(-1))
+        return y.reshape(b, y.shape[1], y.shape[2], h, w)
 
 
 class Conv3d(nn.Module):
@@ -46,11 +60,11 @@ class Conv3d(nn.Module):
                 f"{kernel_size}; need in_time >= {kernel_size}"
             )
         self.act = get_activation(activation_type)
-        self.Conv_0 = nn.Conv3d(
+        self.Conv_0 = TimeConv(
             in_channels, in_channels, (kernel_size, 1, 1), bias=False
         )
         self.BatchNorm_0 = BatchNorm(in_channels)
-        self.Conv_1 = nn.Conv3d(
+        self.Conv_1 = TimeConv(
             in_channels, out_channels, (remaining_time, 1, 1), bias=False
         )
         self.BatchNorm_1 = BatchNorm(out_channels)

@@ -1,7 +1,7 @@
 // chipstore: a native binary chip container + multithreaded batch loader
 // (the PyTorch port's copy of cultionet_tpu/native/chipstore.cpp: the same
-// file layout and C ABI, so a store written by either package opens in the
-// other).
+// file layout, so a store written by either package opens in the other, and
+// the same C ABI but for the prefetch start below).
 //
 // Fixed-shape chips in one mmap'd file, zero-copy reads, and a C++
 // background prefetch pipeline that assembles shuffled batches into a ring
@@ -9,11 +9,15 @@
 // ctypes (cultionet_tpu_torch/data/chipstore.py), built with g++ at first
 // use.
 //
-// One difference from the JAX package's copy: slots are handed out in the
+// Two differences from the JAX package's copy. Slots are handed out in the
 // order their batches were claimed (each claim takes a sequence number), so
 // any number of worker threads yields the batches one thread would. With
 // delivery in finish order, a batch claimed past an epoch's end could
 // overtake the epoch's last batch and put a chip twice into that epoch.
+// And cs_prefetch_start_block takes the place of cs_prefetch_start: its
+// slots hold the rows [lo, hi) of each shuffled batch (the whole batch, or
+// one data-parallel rank's block), so each rank reads and copies only its
+// own chips from one shared store.
 //
 // File layout (little endian):
 //   header:
@@ -103,6 +107,8 @@ struct Store {
   uint64_t next_deliver = 0;  // sequence number cs_next_slot hands out next
   std::mutex cursor_mu;
   int64_t batch_size = 0;
+  int64_t block_lo = 0;  // rows [block_lo, block_hi) of each batch go to
+  int64_t block_hi = 0;  // the slot
   bool running = false;
 
   const uint8_t* record(uint64_t index) const {
@@ -157,10 +163,11 @@ void worker_loop(Store* s, uint64_t seed) {
     }
 
     Store::Slot& slot = s->slots[slot_id];
-    slot.count = int64_t(indices.size());
+    slot.count = s->block_hi - s->block_lo;
     slot.seq = seq;
-    for (size_t i = 0; i < indices.size(); ++i) {
-      copy_chip(s, indices[i], slot.x.data() + i * s->x_bytes,
+    for (size_t i = 0; i < size_t(slot.count); ++i) {
+      copy_chip(s, indices[size_t(s->block_lo) + i],
+                slot.x.data() + i * s->x_bytes,
                 s->header.has_labels ? slot.y.data() + i * s->y_bytes
                                      : nullptr,
                 s->header.has_labels ? slot.bdist.data() + i * s->bdist_bytes
@@ -253,12 +260,18 @@ int cs_read_batch(void* handle, const int64_t* indices, int64_t n,
   return 0;
 }
 
-// Background prefetch pipeline: shuffled epochs, zero-copy slot ring.
-int cs_prefetch_start(void* handle, int64_t batch_size, uint64_t seed,
-                      int num_threads, int num_slots) {
+// Background prefetch pipeline: shuffled epochs, zero-copy slot ring. Each
+// slot holds the rows [lo, hi) of a shuffled batch of batch_size chips.
+int cs_prefetch_start_block(void* handle, int64_t batch_size, int64_t lo,
+                            int64_t hi, uint64_t seed, int num_threads,
+                            int num_slots) {
   auto* s = static_cast<Store*>(handle);
-  if (s->running || batch_size <= 0) return -1;
+  if (s->running || batch_size <= 0 || lo < 0 || hi <= lo || hi > batch_size)
+    return -1;
   s->batch_size = batch_size;
+  s->block_lo = lo;
+  s->block_hi = hi;
+  const size_t rows = size_t(hi - lo);
   s->order.resize(s->header.num_chips);
   for (uint64_t i = 0; i < s->header.num_chips; ++i) s->order[i] = i;
   std::mt19937_64 rng(seed);
@@ -274,11 +287,11 @@ int cs_prefetch_start(void* handle, int64_t batch_size, uint64_t seed,
   s->free_q.clear();
   for (int i = 0; i < slots; ++i) {
     auto& slot = s->slots[i];
-    slot.x.resize(size_t(batch_size) * s->x_bytes);
-    slot.meta.resize(size_t(batch_size) * s->meta_bytes);
+    slot.x.resize(rows * s->x_bytes);
+    slot.meta.resize(rows * s->meta_bytes);
     if (s->header.has_labels) {
-      slot.y.resize(size_t(batch_size) * s->y_bytes);
-      slot.bdist.resize(size_t(batch_size) * s->bdist_bytes);
+      slot.y.resize(rows * s->y_bytes);
+      slot.bdist.resize(rows * s->bdist_bytes);
     }
     s->free_q.push_back(i);
   }

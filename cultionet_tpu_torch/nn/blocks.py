@@ -22,6 +22,7 @@ from .dropout import Dropout
 from .layers import Conv2d, cast, promoted
 from .layers import ConvTranspose2d as _ConvTranspose
 from .remat import recomputing
+from ..parallel.mesh import data_parallel_active, global_sum
 from .resize import resize_bilinear_align_corners
 
 Tensor = torch.Tensor
@@ -51,6 +52,12 @@ class BatchNorm(nn.Module):
     parameters) first, ``ra = bf16(0.9 * bf16(ra)) + 0.1 * stat`` under
     bf16 compute. The recompute of a rematerialized segment
     (``remat.py``) leaves the running statistics as they are.
+
+    Inside ``parallel/mesh.py::data_parallel`` with more than one rank the
+    batch statistics are the global batch's: the count, sum and sum of
+    squares per channel (fp32) are summed over the data group, the
+    variance is flax's ``E[x^2] - E[x]^2``, and the gradient flows back
+    through the sums to every rank.
     """
 
     def __init__(self, channels: int):
@@ -75,22 +82,14 @@ class BatchNorm(nn.Module):
                 eps=bn.eps,
             )
             return out.view(x.shape) if folded else out
+        if data_parallel_active():
+            return self._global_batch_norm(x, x4, weight, bias)
         if not recomputing():
             with torch.no_grad():
                 var, mean = torch.var_mean(
                     x4.float(), dim=(0, 2, 3), correction=0
                 )
-                # 0.9 in the compute type: the product of two values of
-                # that type is exact in fp32, so torch's fp32 arithmetic
-                # rounds it once, as JAX's multiply in that type does.
-                stats_dtype = bn.weight.dtype
-                momentum = torch.tensor(0.9, dtype=stats_dtype).item()
-                for running, stat in (
-                    (bn.running_mean, mean),
-                    (bn.running_var, var),
-                ):
-                    old = (running.to(stats_dtype) * momentum).float()
-                    running.copy_(old + 0.1 * stat)
+                self._update_running(mean, var)
         out = F.batch_norm(
             x4, None, None, weight, bias, training=True, eps=bn.eps
         )
@@ -98,6 +97,45 @@ class BatchNorm(nn.Module):
         # batch_norm and a channels-last consumer (the front end's
         # LayerNorm) gave a wrong input gradient at batch 1.
         return out.view(x.shape) if folded else out
+
+    @torch.no_grad()
+    def _update_running(self, mean: Tensor, var: Tensor) -> None:
+        bn = self.BatchNorm_0
+        # 0.9 in the compute type: the product of two values of that type
+        # is exact in fp32, so torch's fp32 arithmetic rounds it once, as
+        # JAX's multiply in that type does.
+        stats_dtype = bn.weight.dtype
+        momentum = torch.tensor(0.9, dtype=stats_dtype).item()
+        for running, stat in ((bn.running_mean, mean), (bn.running_var, var)):
+            old = (running.to(stats_dtype) * momentum).float()
+            running.copy_(old + 0.1 * stat)
+
+    def _global_batch_norm(
+        self, x: Tensor, x4: Tensor, weight: Tensor, bias: Tensor
+    ) -> Tensor:
+        bn = self.BatchNorm_0
+        x32 = x4.float()
+        count = torch.full(
+            (1,), x32.numel() // x32.shape[1], dtype=torch.float32,
+            device=x32.device,
+        )
+        sums = global_sum(
+            torch.cat(
+                [x32.sum(dim=(0, 2, 3)), (x32 * x32).sum(dim=(0, 2, 3)), count]
+            )
+        )
+        channels = x32.shape[1]
+        n = sums[-1]
+        mean = sums[:channels] / n
+        var = (sums[channels : 2 * channels] / n - mean * mean).clamp_min(0.0)
+        if not recomputing():
+            self._update_running(mean.detach(), var.detach())
+        scale = torch.rsqrt(var + bn.eps)
+        shape = (1, channels, 1, 1)
+        out = (x32 - mean.view(shape)) * scale.view(shape)
+        out = out * weight.float().view(shape) + bias.float().view(shape)
+        out = out.to(x4.dtype)
+        return out.view(x.shape) if x.dim() == 5 else out
 
 
 class DepthwiseSeparableConv(nn.Module):

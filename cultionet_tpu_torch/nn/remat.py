@@ -35,6 +35,7 @@ from torch import nn
 from torch.func import functional_call
 from torch.utils.checkpoint import checkpoint as torch_checkpoint
 
+from ..parallel.mesh import plain_named_parameters
 from .dropout import _GENERATOR
 
 _RECOMPUTING: contextvars.ContextVar[bool] = contextvars.ContextVar(
@@ -75,7 +76,7 @@ def checkpoint(module: nn.Module, *args):
     generator = _GENERATOR.get()
     state = None if generator is None else generator.get_state()
     tensors = {
-        **dict(module.named_parameters()),
+        **plain_named_parameters(module),
         **dict(module.named_buffers()),
     }
     return torch_checkpoint(

@@ -13,8 +13,13 @@ bounds, which a ``use_latlon`` model embeds: the bounds the window chips
 carry, or those given to ``predict_scene`` (``(0, 0, 1, 1)`` when none
 are, as in the JAX package).
 
-Not yet ported: the JAX whole-scene ``lax.scan`` (a TPU dispatch tactic)
-and multi-device predict.
+``devices=N`` predicts on N cards from one process: a model replica per
+card, each window batch (rounded up to a multiple of N, the last window
+repeated into the extra slots, which are dropped before the blend) split
+into N contiguous blocks that the replicas run at the same time; the
+outputs are blended on the first card. No process group is needed.
+
+Not ported: the JAX whole-scene ``lax.scan`` (a TPU dispatch tactic).
 """
 
 import math
@@ -90,7 +95,9 @@ class ScenePredictor:
     ``model`` is a ``CultioNet`` with its weights; the predictor runs an eval
     copy of it on ``device`` in the compute precision (bf16 on the card by
     default; fp32 when asked, and always on the CPU, as the JAX predictor
-    runs fp32 off the TPU).
+    runs fp32 off the TPU). With ``devices=N`` on the card it runs a copy
+    on each of ``cuda:0..N-1`` (and raises when the machine has fewer);
+    on the CPU the N copies share it.
     """
 
     def __init__(
@@ -99,14 +106,66 @@ class ScenePredictor:
         batch_size: int = 8,
         precision: str = "bf16",
         device="cuda",
+        devices: int = 1,
     ):
         self.device = resolve_device(device)
         if self.device.type != "cuda":
             precision = "fp32"
+        targets = [self.device]
+        if devices > 1:
+            if batch_size % devices:
+                # Every replica takes an equal block of each batch.
+                batch_size += devices - batch_size % devices
+            if self.device.type == "cuda":
+                cards = torch.cuda.device_count()
+                if cards < devices:
+                    raise RuntimeError(
+                        f"predict on {devices} devices needs {devices} "
+                        f"cards; this machine has {cards}"
+                    )
+                targets = [torch.device("cuda", i) for i in range(devices)]
+                self.device = targets[0]
+            else:
+                targets = [self.device] * devices
         self.precision = precision
         self.batch_size = batch_size
-        self.predict_step = make_predict_step(model, precision, self.device)
+        self.devices = devices
+        self._steps = [make_predict_step(model, precision, d) for d in targets]
+        self.predict_step = (
+            self._steps[0] if devices == 1 else self._predict_split
+        )
         self._scene_bounds: T.Optional[T.Tuple[float, ...]] = None
+
+    def _predict_split(
+        self, windows, lat=None, lon=None
+    ) -> T.Dict[str, T.Optional[Tensor]]:
+        """One batch over the replicas: padded to a multiple of their count
+        by repeating the last window, split into contiguous blocks, run,
+        and the real windows' outputs gathered on the first device."""
+        parts = [torch.as_tensor(v) if v is not None else None
+                 for v in (windows, lat, lon)]
+        n = parts[0].shape[0]
+        extra = -n % self.devices
+
+        def padded(value):
+            if value is None or extra == 0:
+                return value
+            return torch.cat([value, value[-1:].expand(extra, *value.shape[1:])])
+
+        blocks = [
+            None if v is None else padded(v).chunk(self.devices)
+            for v in parts
+        ]
+        outputs = [
+            step(*(None if b is None else b[i] for b in blocks))
+            for i, step in enumerate(self._steps)
+        ]
+        return {
+            name: None
+            if outputs[0][name] is None
+            else torch.cat([o[name].to(self.device) for o in outputs])[:n]
+            for name in outputs[0]
+        }
 
     def predict_windows(
         self, dataset: ChipDataset

@@ -22,10 +22,11 @@ or per-variable GeoTIFFs, and its polygons (``data/vector.py``).
 
 Deliberate differences: ``export --platform`` takes ``cuda`` or ``cpu``
 (the artifact runs on the device it was exported on), not JAX's StableHLO
-platforms. Not ported yet (each raises ``NotImplementedError``):
-``import-torch`` and more than one predict device; ``train`` refuses the
-options ``fit`` does not run yet (``train/fit.py::check_ported``: more
-than one device, FSDP). ``--use-chipstore stream|hbm|auto``,
+platforms. Not ported yet (it raises ``NotImplementedError``):
+``import-torch``. ``train --devices N`` launches N ranks (``--fsdp``
+shards the large parameters) and ``predict --devices N`` runs a model
+replica on each of N cards (``train/fit.py``, ``predict.py``).
+``--use-chipstore stream|hbm|auto``,
 ``--device-augment`` and ``--device-augment-noise`` run the device data
 path (``train/fit.py``).
 """
@@ -636,10 +637,6 @@ def predict_image(
     from ..model import checkpoint_hyperparams, load_model
     from ..predict import ScenePredictor
 
-    if args.predict_devices > 1:
-        raise NotImplementedError(
-            "predict on more than one device is not ported yet (ROADMAP 1.9)"
-        )
     ckpt_name = (
         ModelNames.CKPT_TRANSFER_NAME if transfer else ModelNames.CKPT_NAME
     )
@@ -662,7 +659,10 @@ def predict_image(
     dataset.log_transform = bool(hyperparams.get("log_transform", False))
 
     predictor = ScenePredictor(
-        model, batch_size=args.predict_batch_size, device=device
+        model,
+        batch_size=args.predict_batch_size,
+        device=device,
+        devices=args.predict_devices,
     )
     out_path = args.out_path or (
         ppaths.predict_path

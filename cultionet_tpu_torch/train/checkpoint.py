@@ -14,7 +14,15 @@ Layout under ``ckpt_dir``:
   ``hyperparams``, the keys of the JAX meta file.
 
 An inference restore (``with_opt_state=False``) reads ``model.pt`` only.
-Reading the JAX package's orbax checkpoints is not ported yet.
+The JAX package's orbax checkpoints convert to this layout with the root
+script ``convert_orbax.py``.
+
+In a data-parallel run every rank calls ``save_last``/``save_best``: the
+state is gathered (FSDP's shards whole, and every rank's dropout
+generator, kept as ``generators`` beside rank 0's ``generator``), rank 0
+alone writes, and the others wait at a barrier. So a checkpoint is the
+same file as a single card's, and each rank's restore shards it again and
+takes back its own generator.
 """
 
 import json
@@ -23,8 +31,18 @@ import typing as T
 from pathlib import Path
 
 import torch
+import torch.distributed as dist
 
+from ..parallel.mesh import full_tensor, rank_and_world, shard_like
 from .step import TrainState
+
+
+def _persistent_buffers(model) -> T.Dict[str, torch.Tensor]:
+    """The buffers a ``state_dict`` holds (the BatchNorm statistics), by
+    name: not a non-persistent one such as the transformer front end's
+    sinusoid table, which the model rebuilds."""
+    persistent = model.state_dict(keep_vars=True)
+    return {n: b for n, b in model.named_buffers() if n in persistent}
 
 
 def _host(tensors: T.Mapping[str, torch.Tensor]) -> T.Dict[str, torch.Tensor]:
@@ -63,35 +81,44 @@ class Checkpointer:
     ) -> None:
         """Write into ``<which>.tmp`` and move it into place, so a run cut
         while saving leaves the previous checkpoint whole."""
+        rank, world = rank_and_world()
+        model = state.model
+        model_payload = {
+            "params": _host(
+                {n: full_tensor(p) for n, p in model.named_parameters()}
+            ),
+            "batch_stats": _host(_persistent_buffers(model)),
+            "step": int(state.step),
+        }
+        opt_payload = {
+            "opt_state": state.optimizer.state_dict(),
+            "generator": None if generator is None else generator.get_state(),
+        }
+        if world > 1 and generator is not None:
+            states = [None] * world
+            dist.all_gather_object(states, generator.get_state())
+            opt_payload["generators"] = states
+        if rank == 0:
+            self._write(which, epoch, model_payload, opt_payload, metrics,
+                        hyperparams)
+        if world > 1:
+            dist.barrier()
+
+    def _write(self, which, epoch, model_payload, opt_payload, metrics,
+               hyperparams) -> None:
         path = self.ckpt_dir / which
         tmp = self.ckpt_dir / f"{which}.tmp"
         if tmp.exists():
             shutil.rmtree(tmp)
         tmp.mkdir(parents=True)
-        model = state.model
-        torch.save(
-            {
-                "params": _host(dict(model.named_parameters())),
-                "batch_stats": _host(dict(model.named_buffers())),
-                "step": int(state.step),
-            },
-            tmp / "model.pt",
-        )
-        torch.save(
-            {
-                "opt_state": state.optimizer.state_dict(),
-                "generator": None
-                if generator is None
-                else generator.get_state(),
-            },
-            tmp / "opt.pt",
-        )
+        torch.save(model_payload, tmp / "model.pt")
+        torch.save(opt_payload, tmp / "opt.pt")
         if path.exists():
             shutil.rmtree(path)
         tmp.rename(path)
         meta = {
             "epoch": int(epoch),
-            "step": int(state.step),
+            "step": int(model_payload["step"]),
             "metrics": {k: float(v) for k, v in (metrics or {}).items()},
             "hyperparams": hyperparams or {},
         }
@@ -125,8 +152,23 @@ class Checkpointer:
             weights_only=True,
         )
         model = state.model
+        current = dict(model.named_parameters())
+        # Files written before the save kept persistent buffers only also
+        # hold the transformer's sinusoid table: the model rebuilds it.
+        persistent = _persistent_buffers(model)
         model.load_state_dict(
-            {**payload["params"], **payload["batch_stats"]}, strict=True
+            {
+                **{
+                    n: shard_like(v, current[n]) if n in current else v
+                    for n, v in payload["params"].items()
+                },
+                **{
+                    n: v
+                    for n, v in payload["batch_stats"].items()
+                    if n in persistent
+                },
+            },
+            strict=True,
         )
         state.step = int(payload["step"])
         if with_opt_state:
@@ -138,6 +180,8 @@ class Checkpointer:
                 weights_only=True,
             )
             state.optimizer.load_state_dict(opt["opt_state"])
-            if generator is not None and opt["generator"] is not None:
-                generator.set_state(opt["generator"])
+            saved = opt.get("generators") or [opt["generator"]]
+            rank = rank_and_world()[0]
+            if generator is not None and rank < len(saved) and saved[rank] is not None:
+                generator.set_state(saved[rank])
         return state

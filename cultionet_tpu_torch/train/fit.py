@@ -32,9 +32,25 @@ z-scores on the device; host augmenters do not run, and validation stays
 on the host loader.
 
 Every model option of the JAX configuration builds
-(``model_from_kwargs``), ``remat`` included. Not ported yet (each raises
-``NotImplementedError`` in ``check_ported``): more than one device or
-process, and FSDP.
+(``model_from_kwargs``), ``remat`` included.
+
+Data parallel (``parallel/``). JAX runs ``devices > 1`` as one program
+over a mesh; PyTorch runs one process per device. ``fit`` with
+``devices = N > 1`` and no process group launches N ranks itself
+(``parallel/distributed.py::launch``: rank r on ``cuda:r`` over NCCL, or
+on the CPU over gloo) and returns rank 0's result. Each rank draws the
+same shuffled global batch order and trains on its contiguous block of
+every batch through the sharded step, so the run computes the single
+process's steps at the whole batch (dropout excepted: rank r's generator
+is seeded ``random_seed + r``). ``fsdp`` shards the large parameters with
+FSDP2 (``parallel/mesh.py::shard_state_fsdp``). In a group launched
+outside ``fit`` (torchrun, ``initialize_distributed``) each process loads
+the strided file stripe of ``process_local_selection`` and ``batch_size /
+world`` chips a step, as JAX's multi-host loop does; ``steps_per_epoch``
+must agree across them. Validation batches the group divides run
+sharded, the others whole on every rank; the metrics are the global
+batch's. Rank 0 alone writes checkpoints and ``history.csv``. The
+learning-rate sweep runs in one process, as JAX's does.
 """
 
 import csv
@@ -44,15 +60,30 @@ import logging
 import typing as T
 from pathlib import Path
 
+import tempfile
+
 import torch
+import torch.distributed as dist
 from torch.func import functional_call
 
 from ..config import CultionetParams
 from ..data.chipstore import ChipstoreLoader
 from ..data.device_cache import DeviceChipCache, gather_batch
-from ..data.loader import ChipLoader
+from ..data.loader import ChipLoader, process_local_selection
 from ..models import CultioNet
 from ..nn.dropout import dropout_rng
+from ..parallel.distributed import assert_same_across_hosts, launch
+from ..parallel.mesh import (
+    data_parallel,
+    full_tensor,
+    plain_named_parameters,
+    rank_and_world,
+    replicate_state,
+    shard_batch,
+    shard_like,
+    shard_state_fsdp,
+)
+from ..parallel.sharded import make_sharded_eval_step, make_sharded_train_step
 from ..utils.device import resolve_device
 from .checkpoint import Checkpointer
 from .lr_finder import lr_find
@@ -83,22 +114,7 @@ class FitResult:
     model: CultioNet
     history: T.List[T.Dict[str, float]]
     best_score: float
-
-
-def check_ported(params: CultionetParams) -> None:
-    """Raise ``NotImplementedError`` for the options ``fit`` does not run
-    yet, naming each."""
-    cuts = {
-        "devices > 1": params.devices > 1,
-        "fsdp": params.fsdp,
-        "multi-process training": torch.distributed.is_available()
-        and torch.distributed.is_initialized(),
-    }
-    refused = [name for name, cut in cuts.items() if cut]
-    if refused:
-        raise NotImplementedError(
-            "fit: not ported yet: " + ", ".join(refused)
-        )
+    steps_per_epoch: int = 0
 
 
 def model_from_kwargs(in_channels: int, kwargs: T.Mapping) -> CultioNet:
@@ -236,13 +252,15 @@ def _reestimate_batch_stats(
     loader in the compute type, outputs discarded, dropout drawn from a
     generator seeded 0 (the JAX pass's ``PRNGKey(0)``). With ``norm_stats``
     the loader's raw chips are dequantized, clipped and z-scored as the
-    train step does, without augmentation."""
+    train step does, without augmentation. In a data-parallel run each rank
+    passes its block of every batch and the statistics are the global
+    batch's."""
     model = state.model.train()
     compute_dtype = resolve_dtype(precision)
     generator = torch.Generator(device=device).manual_seed(0)
-    run_params = cast_floating(dict(model.named_parameters()), compute_dtype)
+    run_params = cast_floating(plain_named_parameters(model), compute_dtype)
     norm = norm_tensors(norm_stats, device)
-    with dropout_rng(generator):
+    with dropout_rng(generator), data_parallel():
         for batch in loader:
             batch = batch.to(device).dequantize()
             if norm is not None:
@@ -253,15 +271,29 @@ def _reestimate_batch_stats(
     return state
 
 
-def _device_data_loader(params: CultionetParams, train_ds, device):
+def _device_data_loader(
+    params: CultionetParams,
+    train_ds,
+    device,
+    batch_size: int,
+    allow_hbm: bool = True,
+    shard: T.Optional[T.Tuple[int, int]] = None,
+    process_index: int = 0,
+):
     """The train loader of ``use_chipstore`` and the in-step
     normalization statistics: a ``DeviceChipCache`` under "hbm" (and
     under "auto" when the split fits), else a ``ChipstoreLoader`` whose
     store goes beside the checkpoint (or under the dataset's ``cache/``).
+    Ranks launched by ``fit`` (``shard=(rank, world)``) share one store,
+    which rank 0 builds while the others wait, and each streams only its
+    block of every batch; a resident split is whole on every rank, whose
+    step gathers its block of the indices.
 
     Raises ``ValueError`` for ``log_transform`` (the step does not apply
     it) and for ``use_latlon`` with a resident split (its gather carries no
-    coordinates; the JAX package fails at its first step)."""
+    coordinates; the JAX package fails at its first step). Without
+    ``allow_hbm`` (a process of an externally launched group, which holds
+    a file stripe) "hbm" and "auto" stream, with JAX's warning."""
     mode = params.use_chipstore
     if train_ds.log_transform:
         raise ValueError("use_chipstore does not support log_transform")
@@ -274,6 +306,12 @@ def _device_data_loader(params: CultionetParams, train_ds, device):
     if train_ds.norm_values is not None:
         nv = train_ds.norm_values
         norm_stats = (nv.dataset_mean, nv.dataset_std)
+    if mode in ("hbm", "auto") and not allow_hbm:
+        logger.warning(
+            "use_chipstore='hbm' is single-host only (each process "
+            "holds a file stripe); falling back to streaming"
+        )
+        mode = "stream"
     if mode == "hbm" or (
         mode == "auto" and DeviceChipCache.fits(train_ds, device=device)
     ):
@@ -285,7 +323,7 @@ def _device_data_loader(params: CultionetParams, train_ds, device):
             )
         cache = DeviceChipCache(
             train_ds,
-            batch_size=params.batch_size,
+            batch_size=batch_size,
             seed=params.random_seed,
             device=device,
         )
@@ -299,14 +337,21 @@ def _device_data_loader(params: CultionetParams, train_ds, device):
         if params.ckpt_file is not None
         else Path(train_ds.root) / "cache"
     )
+    builds = shard is None or shard[0] == 0
+    if not builds:
+        dist.barrier()  # rank 0 builds the store
     loader = ChipstoreLoader(
         train_ds,
-        batch_size=params.batch_size,
+        batch_size=batch_size,
         cache_path=cache_dir / "train.cts",
         seed=params.random_seed,
         num_threads=max(2, params.load_batch_workers),
         device=device,
+        shard=shard,
+        process_index=process_index,
     )
+    if shard is not None and builds:
+        dist.barrier()
     return loader, norm_stats
 
 
@@ -344,10 +389,11 @@ def fit(
     model, for transfer learning) seeds the parameters and BatchNorm
     statistics, and ``params.finetune`` chooses which parameters train:
     'all', or else only the final heads (which ``finetune=None`` also
-    re-initializes).
+    re-initializes). With ``params.devices > 1`` and no process group,
+    ``fit`` launches that many ranks (``cuda:0..N-1``, or CPU processes
+    for ``device="cpu"``) and returns rank 0's result.
     """
     device = resolve_device(device)
-    check_ported(params)
     params.check_checkpoint()
 
     dataset = params.dataset
@@ -355,7 +401,7 @@ def fit(
         params.update_channels(dataset)
 
     if params.auto_lr_find:
-        # A learning-rate sweep instead of training.
+        # A learning-rate sweep instead of training, in this process.
         sweep = lr_find(params, device=device)
         return FitResult(
             state=None,
@@ -368,6 +414,99 @@ def fit(
                 sweep.suggestion if sweep.suggestion is not None else -1.0
             ),
         )
+
+    grouped = dist.is_available() and dist.is_initialized()
+    if params.devices > 1 and not grouped:
+        if params.batch_size % params.devices:
+            raise ValueError(
+                f"batch_size {params.batch_size} must divide evenly over "
+                f"{params.devices} devices"
+            )
+        return _launch_fit(params, pretrained_state, device)
+    return _fit_rank(params, pretrained_state, device, launched=False)
+
+
+def _launch_fit(params: CultionetParams, pretrained_state, device) -> FitResult:
+    """Run ``fit`` on ``params.devices`` ranks launched here; rank 0 hands
+    back its model, optimizer state and history through a file."""
+    if isinstance(pretrained_state, TrainState):
+        pretrained_state = pretrained_state.model.state_dict()
+    if pretrained_state is not None:
+        pretrained_state = {
+            n: t.detach().cpu() for n, t in pretrained_state.items()
+        }
+    # The checkpoint was already reset here; the ranks must not do it again.
+    rank_params = dataclasses.replace(params, reset_model=False)
+    with tempfile.TemporaryDirectory() as tmp:
+        out = Path(tmp) / "rank0.pt"
+        launch(
+            _fit_launched_rank,
+            params.devices,
+            device,
+            args=(rank_params, pretrained_state, str(out)),
+        )
+        payload = torch.load(out, map_location="cpu", weights_only=False)
+    model = build_model(params)
+    state = create_train_state(
+        model, build_optimizer(optimizer=params.optimizer), device=device
+    )
+    model.load_state_dict(payload["state"]["model"], strict=True)
+    tx = _build_tx(params, payload["steps_per_epoch"])
+    trainable = (
+        None
+        if pretrained_state is None
+        else _trainable_mask(model, params.finetune)
+    )
+    state.optimizer = tx.init(model.parameters(), trainable)
+    state.optimizer.load_state_dict(payload["state"]["optimizer"])
+    state.step = payload["state"]["step"]
+    return FitResult(
+        state=state,
+        model=model,
+        history=payload["history"],
+        best_score=payload["best_score"],
+        steps_per_epoch=payload["steps_per_epoch"],
+    )
+
+
+def _fit_launched_rank(device, params, pretrained_state, out: str) -> None:
+    """One rank of ``_launch_fit``, inside its process group."""
+    result = _fit_rank(params, pretrained_state, device, launched=True)
+    # Collectives (FSDP's shards gathered whole): every rank calls them.
+    state = {
+        "model": {
+            n: full_tensor(t).detach().cpu()
+            for n, t in result.state.model.state_dict().items()
+        },
+        "optimizer": result.state.optimizer.state_dict(),
+        "step": result.state.step,
+    }
+    if rank_and_world()[0] == 0:
+        torch.save(
+            {
+                "state": state,
+                "history": result.history,
+                "best_score": result.best_score,
+                "steps_per_epoch": result.steps_per_epoch,
+            },
+            out,
+        )
+
+
+def _fit_rank(
+    params: CultionetParams,
+    pretrained_state,
+    device: torch.device,
+    launched: bool,
+) -> FitResult:
+    """The training loop of one process: the only one, a rank ``fit``
+    launched (``launched``: it trains on its block of each global batch),
+    or a process of a group launched outside (its file stripe)."""
+    dataset = params.dataset
+    rank, world = rank_and_world()
+    grouped = dist.is_available() and dist.is_initialized()
+    striped = grouped and world > 1 and not launched
+    lead = rank == 0
 
     partition_file = params.spatial_partitions
     if partition_file and partition_file != "spatial" and params.partition_name:
@@ -388,22 +527,49 @@ def fit(
             spatial_balance=params.spatial_partitions is not None,
         )
     train_ds.augment_prob = params.augment_prob
+
+    loader_batch_size = params.batch_size
+    if striped:
+        # JAX's multi-host rule: a disjoint stripe of the train files and
+        # batch_size / world chips a step on each process.
+        if params.batch_size % world:
+            raise ValueError(
+                f"global batch_size {params.batch_size} must divide over "
+                f"{world} processes"
+            )
+        loader_batch_size = params.batch_size // world
+        train_ds = train_ds.index_select(
+            process_local_selection(len(train_ds), rank, world)
+        )
+    # A rank launched by ``fit`` takes its block of each global batch.
+    blocks = launched and world > 1
+
     norm_stats = None
     if params.use_chipstore:
-        train_loader, norm_stats = _device_data_loader(params, train_ds, device)
+        train_loader, norm_stats = _device_data_loader(
+            params, train_ds, device, loader_batch_size,
+            allow_hbm=not striped,
+            shard=(rank, world) if blocks else None,
+            process_index=rank if striped else 0,
+        )
     else:
         train_loader = ChipLoader(
             train_ds,
-            batch_size=params.batch_size,
+            batch_size=loader_batch_size,
             shuffle=True,
             drop_last=True,
             device=device,
+            shard=(rank, world) if blocks else None,
         )
     hbm_cache = (
         train_loader if isinstance(train_loader, DeviceChipCache) else None
     )
     val_loader = ChipLoader(val_ds, batch_size=params.batch_size, device=device)
     steps_per_epoch = max(1, len(train_loader))
+    if striped:
+        assert_same_across_hosts(
+            len(train_ds) // max(1, loader_batch_size), "steps_per_epoch"
+        )
 
     model = build_model(params)
     # Placeholder optimizer: the real one is bound once the trainable mask
@@ -418,6 +584,14 @@ def fit(
     if pretrained_state is not None:
         _load_pretrained(state.model, pretrained_state, params.finetune)
         trainable = _trainable_mask(state.model, params.finetune)
+    if world > 1:
+        replicate_state(state)
+        if params.fsdp:
+            shard_state_fsdp(
+                state,
+                min_size=params.fsdp_min_size,
+                compute_dtype=resolve_dtype(params.compute_precision),
+            )
     tx = _build_tx(params, steps_per_epoch)
     state.optimizer = tx.init(state.model.parameters(), trainable)
 
@@ -428,7 +602,9 @@ def fit(
         steps_per_epoch=_schedule_steps(params, steps_per_epoch),
         steplr_step_size=params.steplr_step_size,
     )
-    generator = torch.Generator(device=device).manual_seed(params.random_seed)
+    generator = torch.Generator(device=device).manual_seed(
+        params.random_seed + rank
+    )
 
     ckpt = None
     start_epoch = 0
@@ -454,7 +630,8 @@ def fit(
             # Replay the shuffles of the finished epochs, so the resumed
             # epochs see the batches an uninterrupted run would.
             train_loader.skip_epochs(start_epoch)
-            logger.info(f"Resumed from epoch {meta['epoch']}")
+            if lead:
+                logger.info(f"Resumed from epoch {meta['epoch']}")
 
     class_weights = _resolve_class_weights(params)
     step_kwargs = dict(
@@ -464,21 +641,43 @@ def fit(
         class_weights=class_weights,
         device=device,
     )
-    eval_step = make_eval_step(**step_kwargs)
     train_kwargs = dict(
         step_kwargs,
         device_augment=params.device_augment,
         device_augment_noise=params.device_augment_noise,
         norm_stats=norm_stats,
     )
+    # In a process group every step goes through the sharded steps (at
+    # world size 1 they are the plain steps and one all-reduce).
+    eval_step = make_eval_step(**step_kwargs)
+    sharded_eval_step = (
+        make_sharded_eval_step(**step_kwargs) if grouped else eval_step
+    )
+    step = (
+        make_sharded_train_step(**train_kwargs)
+        if grouped
+        else make_train_step(**train_kwargs)
+    )
+
+    def local_block(batch):
+        return shard_batch(batch) if blocks else batch
+
     if hbm_cache is not None:
-        hbm_step = make_hbm_train_step(**train_kwargs)
+        hbm_step = make_hbm_train_step(step, device=device)
 
         def train_step(state, batch, generator):
-            return hbm_step(state, hbm_cache.arrays, batch.indices, generator)
+            indices = local_block(batch).indices
+            return hbm_step(state, hbm_cache.arrays, indices, generator)
 
-    else:
-        train_step = make_train_step(**train_kwargs)
+    else:  # the loaders already deliver this rank's block
+        train_step = step
+
+    def evaluate(batch):
+        """A validation batch: sharded where the group divides it, else
+        whole on every rank (JAX's unsharded fallback)."""
+        if world > 1 and batch.num_samples % world == 0:
+            return sharded_eval_step(state, shard_batch(batch))
+        return eval_step(state, batch)
 
     history: T.List[T.Dict[str, float]] = []
     best_score = float("inf")
@@ -488,7 +687,8 @@ def fit(
         )
     if params.skip_train:
         return FitResult(
-            state=state, model=model, history=history, best_score=best_score
+            state=state, model=model, history=history, best_score=best_score,
+            steps_per_epoch=steps_per_epoch,
         )
 
     swa_params = None
@@ -500,12 +700,12 @@ def fit(
         train_rows = []
         for batch in train_loader:
             state, logs = train_step(state, batch, generator)
-            train_rows.append((batch.num_samples, logs))
+            train_rows.append((params.batch_size, logs))
 
         val_rows = []
         batch_metric_rows = []
         for batch_idx, batch in enumerate(val_loader):
-            val_rows.append((batch.num_samples, eval_step(state, batch)))
+            val_rows.append((batch.num_samples, evaluate(batch)))
             if params.save_batch_val_metrics and params.ckpt_file is not None:
                 batch_metric_rows.append(
                     {
@@ -515,7 +715,7 @@ def fit(
                         **{k: float(v) for k, v in val_rows[-1][1].items()},
                     }
                 )
-        if batch_metric_rows:
+        if batch_metric_rows and lead:
             _append_batch_metrics(
                 Path(params.ckpt_file).parent, batch_metric_rows
             )
@@ -539,12 +739,14 @@ def fit(
             ),
         }
         history.append(row)
-        if params.ckpt_file is not None:
+        if params.ckpt_file is not None and lead:
             _append_csv(Path(params.ckpt_file).parent / "history.csv", row)
-        logger.info(
-            f"epoch {epoch}: loss={row['loss']:.4f} "
-            f"val_loss={row['val_loss']:.4f} val_score={row['val_score']:.4f}"
-        )
+        if lead:
+            logger.info(
+                f"epoch {epoch}: loss={row['loss']:.4f} "
+                f"val_loss={row['val_loss']:.4f} "
+                f"val_score={row['val_score']:.4f}"
+            )
 
         if params.stochastic_weight_averaging and epoch >= swa_start_epoch:
             current = {
@@ -571,23 +773,31 @@ def fit(
                 )
 
     if params.model_pruning:
+        # The magnitude threshold is global: FSDP's shards gathered whole.
         pruned = l1_unstructured_prune(
-            {n: p.detach().float() for n, p in state.model.named_parameters()}
+            {
+                n: full_tensor(p.detach()).float()
+                for n, p in state.model.named_parameters()
+            }
         )
         with torch.no_grad():
             for n, p in state.model.named_parameters():
-                p.copy_(pruned[n])
+                p.copy_(shard_like(pruned[n], p))
 
     if swa_params is not None:
         with torch.no_grad():
             for n, p in state.model.named_parameters():
                 p.copy_(swa_params[n])
-        refit_batches = train_loader
         if hbm_cache is not None:
             # Real batches of the resident split's next epoch.
             refit_batches = (
-                gather_batch(hbm_cache.arrays, b.indices) for b in hbm_cache
+                gather_batch(
+                    hbm_cache.arrays, local_block(b).indices.to(device)
+                )
+                for b in hbm_cache
             )
+        else:  # the loaders already deliver this rank's block
+            refit_batches = train_loader
         state = _reestimate_batch_stats(
             state,
             refit_batches,
@@ -605,10 +815,12 @@ def fit(
         test_loader = ChipLoader(
             params.test_dataset, batch_size=params.batch_size, device=device
         )
-        test_rows = [(b.num_samples, eval_step(state, b)) for b in test_loader]
-        out_path = Path(params.ckpt_file).parent / "test.metrics"
-        out_path.write_text(json.dumps(_mean_metrics(test_rows), indent=2))
+        test_rows = [(b.num_samples, evaluate(b)) for b in test_loader]
+        if lead:
+            out_path = Path(params.ckpt_file).parent / "test.metrics"
+            out_path.write_text(json.dumps(_mean_metrics(test_rows), indent=2))
 
     return FitResult(
-        state=state, model=model, history=history, best_score=best_score
+        state=state, model=model, history=history, best_score=best_score,
+        steps_per_epoch=steps_per_epoch,
     )

@@ -10,6 +10,10 @@ the running mean of ``k`` mini-step gradients), clipping (global norm or
 per element) and the torch optimizer, with the learning rate and AdamW's
 beta1 set from their schedules at the update count before each update.
 RAdam is optax's rule (``OptaxRAdam``), which ``torch.optim.RAdam`` is not.
+Under FSDP (``parallel/mesh.py::shard_state_fsdp``) the sharded parameters
+are DTensors: the global norm sums every shard's squares over the group,
+and the torch optimizer runs its per-tensor loop (its multi-tensor kernels
+refuse a mix of DTensors and tensors).
 """
 
 import dataclasses
@@ -17,8 +21,10 @@ import math
 import typing as T
 
 import torch
+import torch.distributed as dist
 
 from ..enums import LearningRateSchedulers
+from ..parallel.mesh import full_tensor, is_sharded, local_part, shard_like
 
 Tensor = torch.Tensor
 Schedule = T.Callable[[int], float]
@@ -223,6 +229,20 @@ class OptaxRAdam(torch.optim.Optimizer):
                 p.sub_(group["lr"] * update)
 
 
+def global_norm(grads: T.List[Tensor]) -> Tensor:
+    """The L2 norm of all of ``grads``; a DTensor's shards count once each,
+    their squares summed over the process group."""
+    sharded = [local_part(g) for g in grads if is_sharded(g)]
+    if not sharded:
+        return torch.nn.utils.get_total_norm(grads)
+    squares = torch.nn.utils.get_total_norm(sharded) ** 2
+    dist.all_reduce(squares)
+    plain = [g for g in grads if not is_sharded(g)]
+    if plain:
+        squares = squares + torch.nn.utils.get_total_norm(plain) ** 2
+    return squares.sqrt()
+
+
 class Optimizer:
     """An ``OptimizerSpec`` bound to parameters. ``count`` is the number of
     updates applied (optax's inner count); the schedules are read at it."""
@@ -244,6 +264,7 @@ class Optimizer:
         self.mini_step = 0
         self._acc: T.Optional[T.List[Tensor]] = None
         lr = self._learning_rate()
+        foreach = False if any(is_sharded(p) for p in params) else None
         if spec.optimizer == "AdamW":
             self.torch_optimizer = torch.optim.AdamW(
                 params,
@@ -251,10 +272,12 @@ class Optimizer:
                 betas=(self._beta1(), 0.98),
                 eps=spec.eps,
                 weight_decay=spec.weight_decay,
+                foreach=foreach,
             )
         elif spec.optimizer == "Adam":
             self.torch_optimizer = torch.optim.Adam(
-                params, lr=lr, betas=(0.9, 0.999), eps=spec.eps
+                params, lr=lr, betas=(0.9, 0.999), eps=spec.eps,
+                foreach=foreach,
             )
         elif spec.optimizer == "RAdam":
             self.torch_optimizer = OptaxRAdam(
@@ -262,7 +285,8 @@ class Optimizer:
             )
         else:
             self.torch_optimizer = torch.optim.SGD(
-                params, lr=lr, momentum=0.9, weight_decay=spec.weight_decay
+                params, lr=lr, momentum=0.9, weight_decay=spec.weight_decay,
+                foreach=foreach,
             )
 
     def _learning_rate(self) -> float:
@@ -288,9 +312,10 @@ class Optimizer:
         # optax.clip_by_global_norm: scale by limit / norm when the norm
         # reaches the limit; on the device, without a host sync, with a
         # few multi-tensor launches whatever the number of tensors.
-        norm = torch.nn.utils.get_total_norm(grads)
+        norm = global_norm(grads)
         scale = torch.where(norm < limit, torch.ones_like(norm), limit / norm)
-        return torch._foreach_mul(grads, scale)
+        torch._foreach_mul_([local_part(g) for g in grads], scale)
+        return grads
 
     @torch.no_grad()
     def step(self) -> bool:
@@ -324,23 +349,53 @@ class Optimizer:
 
     def state_dict(self) -> dict:
         """Everything ``step`` carries between calls: the torch optimizer's
-        state, the update count, the accumulation position and sums."""
+        state, the update count, the accumulation position and sums. Under
+        FSDP the sharded moments are gathered whole (a collective: every
+        rank calls it), so the dict is a single card's."""
+        state = self.torch_optimizer.state_dict()
+        state["state"] = {
+            index: {name: full_tensor(value) for name, value in slot.items()}
+            for index, slot in state["state"].items()
+        }
         return {
-            "torch_optimizer": self.torch_optimizer.state_dict(),
+            "torch_optimizer": state,
             "count": self.count,
             "mini_step": self.mini_step,
-            "acc": self._acc,
+            "acc": None if self._acc is None else [full_tensor(a) for a in self._acc],
         }
 
     def load_state_dict(self, state: dict) -> None:
-        self.torch_optimizer.load_state_dict(state["torch_optimizer"])
+        """Restore ``state_dict``'s output (or ``convert_orbax.py``'s); whole
+        moments of a parameter that FSDP shards are sharded as it is. The
+        hyperparameters stay this optimizer's (its spec's): only the state
+        is read."""
+        torch_state = dict(state["torch_optimizer"])
+        torch_state["param_groups"] = [
+            {**group, "params": saved["params"]}
+            for group, saved in zip(
+                self.torch_optimizer.state_dict()["param_groups"],
+                torch_state["param_groups"],
+            )
+        ]
+        torch_state["state"] = {
+            index: {
+                name: shard_like(value, self.params[int(index)])
+                if value.dim() > 0
+                else value
+                for name, value in slot.items()
+            }
+            for index, slot in torch_state["state"].items()
+        }
+        self.torch_optimizer.load_state_dict(torch_state)
         self.count = int(state["count"])
         self.mini_step = int(state["mini_step"])
         acc = state["acc"]
         self._acc = (
             None
             if acc is None
-            else [a.to(p.device) for a, p in zip(acc, self.params)]
+            else [
+                shard_like(a.to(p.device), p) for a, p in zip(acc, self.params)
+            ]
         )
 
     def zero_grad(self) -> None:

@@ -33,6 +33,7 @@ from ..data.device_cache import gather_batch
 from ..enums import InferenceNames, LossTypes, ValidationNames
 from ..nn.dropout import dropout_rng
 from ..nn.init import init_parameters_
+from ..parallel.mesh import gather_for_loss, plain_named_parameters
 from ..utils.device import resolve_device
 from .labels import get_true_labels
 from .loss_registry import LOSS_DICT
@@ -172,15 +173,19 @@ def forward_loss(
     the loss of ``calc_loss(**loss_kwargs)``. ``batch`` lies on the model's
     device; ``loss.backward()`` leaves fp32 gradients in the parameters
     (outside ``dropout_rng``: a rematerialized segment replays its own
-    generator, ``nn/remat.py``)."""
+    generator, ``nn/remat.py``). Inside ``parallel/mesh.py::data_parallel``
+    the loss is the global batch's (``gather_for_loss``); FSDP casts the
+    parameters it shards itself."""
     batch = batch.dequantize()
     model.train()
-    run_params = cast_floating(dict(model.named_parameters()), compute_dtype)
+    run_params = cast_floating(plain_named_parameters(model), compute_dtype)
     with dropout_rng(generator):
         outputs = functional_call(
             model, run_params, model_inputs(batch, compute_dtype)
         )
-    outputs = cast_floating(outputs, torch.float32)
+    outputs, batch = gather_for_loss(
+        cast_floating(outputs, torch.float32), batch
+    )
     return calc_loss(outputs, batch, **loss_kwargs)
 
 
@@ -221,6 +226,7 @@ def make_train_step(
     device_augment_noise: float = 0.0,
     norm_stats: T.Optional[T.Tuple[T.Any, T.Any]] = None,
     device="cuda",
+    reduce_gradients: T.Optional[T.Callable[[nn.Module], None]] = None,
 ) -> T.Callable[
     [TrainState, Batch, torch.Generator],
     T.Tuple[TrainState, T.Dict[str, Tensor]],
@@ -240,6 +246,8 @@ def make_train_step(
     and the optimizer updates the fp32 weights. BatchNorm running
     statistics stay fp32 (``nn/blocks.py::BatchNorm``). The logs hold
     0-d tensors on the device (reading them waits for the step).
+    ``reduce_gradients(model)`` runs between the backward and the optimizer
+    (the data-parallel all-reduce, ``parallel/sharded.py``).
     """
     device = resolve_device(device)
     compute_dtype = resolve_dtype(precision)
@@ -272,6 +280,8 @@ def make_train_step(
             class_weights=class_weights,
         )
         loss.backward()
+        if reduce_gradients is not None:
+            reduce_gradients(state.model)
         state.optimizer.step()
         state.step += 1
         logs = {"loss": loss, **report}
@@ -281,6 +291,7 @@ def make_train_step(
 
 
 def make_hbm_train_step(
+    inner: T.Optional[T.Callable] = None,
     **train_kwargs,
 ) -> T.Callable[
     [TrainState, T.Mapping[str, T.Optional[Tensor]], Tensor, torch.Generator],
@@ -289,10 +300,12 @@ def make_hbm_train_step(
     """A train step over a device-resident split:
     ``step(state, arrays, indices, generator)`` gathers the (B,) chip rows
     ``indices`` from the resident int16 ``arrays``
-    (``data/device_cache.py``) on the device, then runs
-    ``make_train_step(**train_kwargs)`` on them. The index vector is all
-    that a step needs from the host."""
-    inner = make_train_step(**train_kwargs)
+    (``data/device_cache.py``) on the device, then runs the train step
+    ``inner`` on them (by default ``make_train_step(**train_kwargs)``; the
+    sharded step under data parallelism). The index vector is all that a
+    step needs from the host."""
+    if inner is None:
+        inner = make_train_step(**train_kwargs)
     device = resolve_device(train_kwargs.get("device", "cuda"))
 
     def step(state, arrays, indices, generator):
@@ -362,14 +375,15 @@ def make_eval_step(
 ) -> T.Callable[[TrainState, Batch], T.Dict[str, Tensor]]:
     """Build an eval step ``(state, batch) -> metrics`` on ``device``: the
     model in eval mode, its parameters and running statistics cast to the
-    compute type, outputs scored in fp32."""
+    compute type, outputs scored in fp32 (over the global batch inside
+    ``parallel/mesh.py::data_parallel``)."""
     device = resolve_device(device)
     compute_dtype = resolve_dtype(precision)
 
     def eval_step(state: TrainState, batch: Batch) -> T.Dict[str, Tensor]:
         batch = batch.to(device).dequantize()
         model = state.model.eval()
-        tensors = dict(model.named_parameters())
+        tensors = plain_named_parameters(model)
         tensors.update(model.named_buffers())
         with torch.no_grad():
             outputs = functional_call(
@@ -377,8 +391,11 @@ def make_eval_step(
                 cast_floating(tensors, compute_dtype),
                 model_inputs(batch, compute_dtype),
             )
+            outputs, batch = gather_for_loss(
+                cast_floating(outputs, torch.float32), batch
+            )
             return evaluate_predictions(
-                cast_floating(outputs, torch.float32),
+                outputs,
                 batch,
                 loss_name=loss_name,
                 edge_class=edge_class,

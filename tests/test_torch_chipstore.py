@@ -235,6 +235,38 @@ def test_skip_epochs_replays_an_epoch(chips, tmp_path):
     assert epochs[0] != epochs[1]
 
 
+def test_rank_blocks_split_every_batch(chips, tmp_path):
+    """``shard=(rank, 2)``: from the one store, each rank's loader yields
+    its contiguous half of every batch the whole loader yields, two epochs
+    running; a batch the ranks do not divide is refused."""
+
+    def loader(shard=None):
+        return chipstore.ChipstoreLoader(
+            ChipDataset(chips), batch_size=4, cache_path=tmp_path / "t.cts",
+            seed=5, num_threads=3, shard=shard,
+        )
+
+    whole = loader()
+    halves = [loader((rank, 2)) for rank in range(2)]
+    assert [h.path for h in halves] == [whole.path] * 2
+    assert [len(h) for h in halves] == [len(whole)] * 2 == [2] * 2
+    for _ in range(2):
+        want = list(whole)
+        got = [list(h) for h in halves]
+        for i, batch in enumerate(want):
+            for rank in range(2):
+                block = got[rank][i]
+                assert block.num_samples == 2
+                for name in FIELDS:
+                    np.testing.assert_array_equal(
+                        getattr(block, name).numpy(),
+                        getattr(batch, name)[2 * rank : 2 * rank + 2].numpy(),
+                        err_msg=name,
+                    )
+    with pytest.raises(ValueError, match="does not split over 3 ranks"):
+        loader((0, 3))
+
+
 def test_missing_compiler_raises(monkeypatch, tmp_path):
     monkeypatch.setattr(chipstore, "BUILD_DIR", tmp_path)
     monkeypatch.setattr(chipstore.shutil, "which", lambda name: None)

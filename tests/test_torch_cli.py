@@ -52,6 +52,7 @@ from cultionet_tpu_torch.scripts import cli  # noqa: E402
 from cultionet_tpu_torch.utils.project_paths import setup_paths  # noqa: E402
 
 from test_cli import make_project  # noqa: E402
+from torch_port_helpers import one_torch_thread  # noqa: E402,F401 (autouse)
 
 REPO = Path(__file__).resolve().parents[1]
 GOLDEN = Path(__file__).parent / "data" / "golden"

@@ -11,10 +11,12 @@ cache (with NA and dilations [1, 2] it took 45 s; the same loop agreed as
 closely). The CLI-default step with NA is held to the JAX step in
 ``test_torch_train.py``; ``test_torch_fit_resume.py`` runs the loop with
 NA and dropout. Also: a fit at the CLI's default ``augment_prob`` 0.5
-ends with finite losses, the options the port does not run yet (more
-than one device, FSDP) raise ``NotImplementedError`` while the device
-data path trains (the learning-rate sweep, pruning and partition files
-run: ``test_torch_train_options.py``), and the model options off
+ends with finite losses, the options refused until they were ported
+train: the device data path, two devices (two CPU ranks that ``fit``
+launches; ``test_torch_fit_parallel.py`` holds them to JAX) and FSDP,
+which one device ignores as JAX's does (the learning-rate sweep, pruning
+and partition files run: ``test_torch_train_options.py``), and the
+model options off
 the default path train and come back from their checkpoint
 (``test_torch_model_options.py`` holds them to JAX).
 """
@@ -198,20 +200,17 @@ def test_fit_with_host_augmentation(tmp_path):
     ids=lambda o: "-".join(f"{k}={v}" for k, v in o.items()),
 )
 def test_unported_options_raise(chips, option, tmp_path):
-    """More than one device and FSDP are refused. The device data path
-    (``device_augment``, ``use_chipstore``), refused until it was ported
-    (the test keeps that name), trains an epoch with finite losses
-    (``tests/test_torch_device_cache.py`` and ``test_torch_chipstore.py``
-    hold it to JAX)."""
+    """The options refused until they were ported (the test keeps that
+    name) train an epoch with finite losses: the device data path
+    (``device_augment``, ``use_chipstore``; ``tests/test_torch_device_cache.py``
+    and ``test_torch_chipstore.py`` hold it to JAX), two devices (two CPU
+    ranks; ``test_torch_fit_parallel.py``) and FSDP (on one device a
+    no-op, as in JAX)."""
     params = CultionetParams(
         ckpt_file=tmp_path / "ckpt" / "last.ckpt",
         dataset=ChipDataset(chips),
         **{**CONFIG, "epochs": 1, **option},
     )
-    if "devices" in option or "fsdp" in option:
-        with pytest.raises(NotImplementedError, match="not ported"):
-            fit(params, device="cpu")
-        return
     got = fit(params, device="cpu")
     assert got.state.step == 4
     for key in ("loss", "val_loss", "val_score"):

@@ -25,6 +25,8 @@ from cultionet_tpu_torch.models import CultioNet
 from cultionet_tpu_torch.nn.init import init_parameters_
 from cultionet_tpu_torch.predict import ScenePredictor
 
+from torch_port_helpers import one_torch_thread  # noqa: F401 (autouse)
+
 OUTPUTS = ("distance", "edge", "crop")
 IN_TIME = 5
 

@@ -21,7 +21,11 @@ from cultionet_tpu_torch.train import optim as torch_optim
 from cultionet_tpu_torch.train import step as torch_step
 from cultionet_tpu_torch.utils.params import from_flax, load_flax
 
-from torch_port_helpers import jax_transformer_model, port_transformer_model
+from torch_port_helpers import (  # noqa: F401 (one_torch_thread: autouse)
+    jax_transformer_model,
+    one_torch_thread,
+    port_transformer_model,
+)
 
 LOSS = "TanimotoComplementLoss"
 

@@ -36,7 +36,10 @@ from cultionet_tpu_torch.train import optim as torch_optim
 from cultionet_tpu_torch.train import step as torch_step
 from cultionet_tpu_torch.utils.params import from_flax, load_flax
 
-from torch_port_helpers import seeded_variables
+from torch_port_helpers import (  # noqa: F401 (one_torch_thread: autouse)
+    one_torch_thread,
+    seeded_variables,
+)
 
 LOSS = "TanimotoComplementLoss"
 

@@ -3,6 +3,19 @@
 
 import jax
 import numpy as np
+import pytest
+import torch
+
+
+@pytest.fixture(autouse=True, scope="module")
+def one_torch_thread():
+    """One torch CPU thread for a test module that imports this fixture:
+    the test runner's workers share the cores, and torch's thread pool
+    (oneDNN's bf16 kernels most of all) then slows down many times over."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
 
 
 def seeded_variables(module, *args, seed: int = 0, **kwargs) -> dict:
@@ -100,37 +113,9 @@ def port_transformer_model(hidden, in_time=6, dropout=0.2):
 
 def restore_golden_checkpoint(ckpt_dir):
     """A trained golden checkpoint (``tests/data/golden*/ckpt/last_store``)
-    restored as the JAX package's ``load_model`` restores it
-    (``model._load_state``), on a template traced with ``jax.eval_shape``:
-    the same model built from the checkpoint's hyperparameters and the same
-    ``Checkpointer.restore``, without ``load_model``'s eager initialization
-    of a template (about 35 s on the CPU). Returns the state and the JAX
-    model."""
-    import dataclasses
+    restored as the JAX package's ``load_model`` restores it, through the
+    converter's restore (``convert_orbax.py::restore_jax_checkpoint``).
+    Returns the state and the JAX model."""
+    from convert_orbax import restore_jax_checkpoint
 
-    from cultionet_tpu.data.synthetic import create_batch as jax_create_batch
-    from cultionet_tpu.models import CultioNet as JaxCultioNet
-    from cultionet_tpu.train import optim as jax_optim
-    from cultionet_tpu.train import step as jax_step
-    from cultionet_tpu.train.checkpoint import Checkpointer
-
-    ckpt = Checkpointer(ckpt_dir)
-    hp = ckpt.load_meta("last")["hyperparams"]
-    fields = {
-        f.name for f in dataclasses.fields(JaxCultioNet) if f.name != "parent"
-    }
-    jax_model = JaxCultioNet(**{k: v for k, v in hp.items() if k in fields})
-    init_batch = jax_create_batch(
-        num_channels=hp["in_channels"], num_time=hp["in_time"], height=32,
-        width=32, rng=np.random.default_rng(0),
-    )
-    abstract = jax.eval_shape(
-        lambda: jax_step.create_train_state(
-            jax_model, jax_optim.build_optimizer("AdamW", 1e-3), init_batch,
-            seed=0,
-        )
-    )
-    template = jax.tree_util.tree_map(
-        lambda leaf: np.zeros(leaf.shape, leaf.dtype), abstract
-    )
-    return ckpt.restore(template, "last", with_opt_state=False), jax_model
+    return restore_jax_checkpoint(ckpt_dir, "last")
