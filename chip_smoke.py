@@ -253,6 +253,22 @@ on the first phase that fails:
     (parameters within 1e-6, gradients as in (b)). (d) ``ScenePredictor`` through its multi-device split
     (one replica) equal bit for bit to today's single-device predict, 12
     na2d_fwd; ``devices=2`` refused on a machine of one card.
+25. import_torch (the reference checkpoint importer, ``import-torch``):
+    the CLI-default CultioNet (hidden 64) with weights from a seeded
+    generator (BatchNorm running variances in [1, 2]) written as a
+    Lightning ``last.ckpt`` in reference names
+    (``tests/torch_reference_keys.py``) with its ``hyper_parameters``;
+    ``python -m cultionet_tpu_torch import-torch`` on it in a subprocess
+    on the card (the entries imported and the command's seconds, with the
+    card's name and power limit, on a line of their own); the same
+    checkpoint with one entry's shape changed (its command run beside the
+    import) makes the command exit non-zero naming that entry. ``load_model`` of the store then predicts
+    the predict phase's seeded 420^2 scene (25 windows of 140^2, batches
+    of 8) through ``ScenePredictor``, in fp32 (TF32 off, cuDNN
+    deterministic) and in bf16: each raster equal bit for bit to the
+    source model's, and 3 na2d_fwd per batch. The cli phase (21) also
+    prints the seconds of a chip's orientation (the Sobel and the phase
+    of ``create``'s boundary distances).
 
 Kernel times (``ms``, ``library_ms``) are device times: ``device_ms``
 queues 20 calls behind a sleep kernel so the card runs them back to back
@@ -261,7 +277,7 @@ and the host's dispatch is hidden; ``call_ms`` (NA kernels) and
 dispatch included where the card is faster than the host.
 
 Kernel launch counts are zeroed just before each path (8, 10, 12, 13,
-16-18, 20-24; the serving process of 19 and the ranks of 24 zero their
+16-18, 20-25; the serving process of 19 and the ranks of 24 zero their
 own) and read just after. Then the kernels line (seven kernels), and last
 ``{"ok": true, "device": {...}}``. TF32 is off for matmuls and
 convolutions throughout, so fp32 comparisons hold fp32 arithmetic.
@@ -2834,6 +2850,24 @@ def partition_train(project, workdir, cli) -> dict:
     return launches
 
 
+def orientation_s_per_chip(chips) -> float:
+    """Seconds the orientation takes in one chip's label math: the Sobel
+    and the phase of ``create_boundary_distances`` on each created chip's
+    crop mask (the median over the chips)."""
+    from cultionet_tpu_torch.data import label_math
+
+    times = []
+    for path in chips:
+        with np.load(path) as data:
+            y = data["y"][0]
+        bdist = label_math.chamfer_distance(((y > 0) & (y != 2)).astype(np.uint8))
+        start = time.perf_counter()
+        grad_x, grad_y = label_math.sobel_5(np.pad(bdist, 5, mode="edge"))
+        np.mod(np.arctan2(grad_y, grad_x), 2 * np.pi)
+        times.append(time.perf_counter() - start)
+    return statistics.median(times)
+
+
 def phase_cli(workdir) -> None:
     """The port's command line in-process (``scripts/cli.py::main``) at the
     CLI defaults (hidden 64, natten, dropout 0.2, augment_prob 0.5, batch 4,
@@ -3055,6 +3089,7 @@ def phase_cli(workdir) -> None:
             "precision": "16-mixed",
             "create_s": create_s,
             "create_s_per_chip": create_s / CLI_REGIONS,
+            "orientation_s_per_chip": orientation_s_per_chip(chips),
             "fields_per_chip": fields,
             "parcels_per_chip": parcels,
             "train_setup_s": train_setup_s,
@@ -4516,6 +4551,149 @@ def phase_data_parallel(smi: str, workdir) -> None:
     emit(record)
 
 
+IMPORT_HYPER = dict(  # the CLI defaults, as a Lightning checkpoint holds them
+    in_channels=3, in_time=12, hidden_channels=64, dropout=0.2,
+    activation_type="SiLU", dilations=[1, 2], res_block_type="resa",
+    attention_weights="natten", pool_by_max=False, batchnorm_first=False,
+)
+
+
+def reference_source_model():
+    """The CLI-default model with weights from a seeded generator and
+    BatchNorm running means ~ 0.1 N(0, 1) and variances in [1, 2], as the
+    parity tests draw them; eval mode, on the host."""
+    from cultionet_tpu_torch.nn.init import init_parameters_
+
+    gen = torch.Generator().manual_seed(11)
+    model = cli_model()
+    init_parameters_(model, gen)
+    with torch.no_grad():
+        for module in model.modules():
+            if isinstance(module, torch.nn.modules.batchnorm._BatchNorm):
+                shape = module.running_mean.shape
+                module.running_mean.copy_(0.1 * torch.randn(shape, generator=gen))
+                module.running_var.copy_(1.0 + torch.rand(shape, generator=gen))
+    return model.eval()
+
+
+def start_import_torch(project, ckpt_path) -> subprocess.Popen:
+    """``python -m cultionet_tpu_torch import-torch`` in a subprocess (on
+    the card, the command's default)."""
+    return subprocess.Popen(
+        [sys.executable, "-m", "cultionet_tpu_torch", "import-torch", "-p",
+         str(project), "--torch-ckpt", str(ckpt_path)],
+        stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True,
+        cwd=Path(__file__).resolve().parent,
+    )
+
+
+def phase_import_torch(smi: str, workdir) -> None:
+    """A reference Lightning checkpoint of the CLI-default model through
+    ``import-torch``, its store predicting as the source model does."""
+    import re
+
+    sys.path.insert(0, str(Path(__file__).resolve().parent / "tests"))
+    from torch_reference_keys import lightning_checkpoint
+
+    from cultionet_tpu_torch.model import load_model
+    from cultionet_tpu_torch.predict import ScenePredictor
+
+    deterministic_fp32()
+    phase_start = time.perf_counter()
+    source = reference_source_model()
+    ckpt = lightning_checkpoint(source.state_dict(), IMPORT_HYPER)
+    root = workdir / "import_torch"
+    root.mkdir()
+    torch.save(ckpt, root / "last.ckpt")
+    # The refusal runs beside the import (each process takes seconds to
+    # reach the card); the import's seconds are its own process's, start
+    # to exit.
+    bad_key = "cultionet_model.mask_model.final_combine.final_dist.0.weight"
+    bad = {"state_dict": dict(ckpt["state_dict"]),
+           "hyper_parameters": ckpt["hyper_parameters"]}
+    bad["state_dict"][bad_key] = bad["state_dict"][bad_key].repeat(1, 2, 1, 1)
+    torch.save(bad, root / "bad.ckpt")
+    start = time.perf_counter()
+    procs = [start_import_torch(root / "project", root / "last.ckpt"),
+             start_import_torch(root / "bad_project", root / "bad.ckpt")]
+    try:
+        out, err = procs[0].communicate(timeout=600)
+        import_s = time.perf_counter() - start
+        bad_out, bad_err = procs[1].communicate(timeout=600)
+        refused_s = time.perf_counter() - start
+    finally:
+        for proc in procs:
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+    log = out + err
+    require(procs[0].returncode == 0,
+            f"import-torch exited {procs[0].returncode}: {log[-3000:]}")
+    found = re.search(r"Imported (\d+) torch entries", log)
+    require(found is not None, f"import-torch logged no count: {log[-2000:]}")
+    entries = int(found.group(1))
+    require(entries == len(ckpt["state_dict"]), f"imported {entries} entries")
+    print(f"import-torch: {entries} entries imported in {import_s} s on {smi}", flush=True)
+    refused_log = bad_out + bad_err
+    require(
+        procs[1].returncode != 0
+        and "mask_model/final_combine/final_dist/kernel" in refused_log,
+        f"import-torch of a bad checkpoint: exit {procs[1].returncode} "
+        f"{refused_log[-2000:]}",
+    )
+
+    _, imported = load_model(root / "project" / "ckpt" / "last_store", device="cuda")
+    source = source.to("cuda")
+    scene = (
+        np.random.default_rng(0).random((12, 420, 420, 3)) * 10000.0
+    ).astype("int16")
+    batches = 4  # 25 windows of 140^2 in batches of 8
+    results = {}
+    for precision in ("fp32", "bf16"):
+        rasters = {}
+        for name, model in (("source", source), ("imported", imported)):
+            predictor = ScenePredictor(model, batch_size=8, precision=precision)
+            zero_launches()
+            start = time.perf_counter()
+            rasters[name], size = predictor.predict_scene(
+                scene, window_size=100, padding=20
+            )
+            seconds = time.perf_counter() - start
+            launches = read_launches()
+            want = {k: 0 for k in launches} | {"na2d_fwd": 3 * batches}
+            require(launches == want, f"import_torch {name} {precision} launched {launches}")
+            require(size == (420, 420), f"import_torch scene size {size}")
+        got, want = rasters["imported"], rasters["source"]
+        require(got.shape == (420, 420, 3) and bool(np.isfinite(got).all()),
+                f"import_torch {precision} raster {got.shape}")
+        lo, hi = float(got.min()), float(got.max())
+        require(0.0 <= lo and hi <= 1.0, f"import_torch raster in [{lo}, {hi}]")
+        require(
+            np.array_equal(got, want),
+            f"import_torch {precision}: imported vs source max-abs "
+            f"{float(np.abs(got - want).max())}",
+        )
+        results[precision] = {
+            "predict_s": seconds, "launches": launches, "raster_min": lo,
+            "raster_max": hi,
+        }
+    emit(
+        {
+            "phase": "import_torch",
+            "nvidia_smi": smi,
+            "entries": entries,
+            "import_s": import_s,
+            "refused_s": refused_s,
+            "refused_entry": bad_key,
+            "scene": [12, 420, 420, 3],
+            "batches": batches,
+            "bit_for_bit": True,
+            "imported": results,
+            "seconds": time.perf_counter() - phase_start,
+        }
+    )
+
+
 def kernel_entry(name, source, replaces, launches, summary) -> dict:
     return {
         "name": name,
@@ -4585,6 +4763,7 @@ def main() -> int:
         phase_model_options(smi, Path(tmp))
         phase_device_data(smi, Path(tmp))
         phase_data_parallel(smi, Path(tmp))
+        phase_import_torch(smi, Path(tmp))
 
     fwd_src = "cultionet_tpu_torch/ops/csrc/na2d_fwd.cu"
     bwd_src = "cultionet_tpu_torch/ops/csrc/na2d_bwd.cu"

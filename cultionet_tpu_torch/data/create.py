@@ -82,6 +82,7 @@ class ReferenceArrays:
 
     labels_array: T.Optional[np.ndarray] = None
     boundary_distance: T.Optional[np.ndarray] = None
+    orientation: T.Optional[np.ndarray] = None
     edge_array: T.Optional[np.ndarray] = None
 
     @classmethod
@@ -103,8 +104,8 @@ class ReferenceArrays:
         edges up and compute the boundary distances of the crop pixels.
         Crop classes collapse to ``max_crop_class`` unless
         ``keep_crop_classes``; with ``nonag_is_unknown`` the background is
-        -1. (The JAX class also carries a Sobel orientation; nothing on this
-        path reads it.)"""
+        -1. ``orientation`` is the boundary distance's gradient direction
+        (``label_math.normalize_boundary_distances``); no chip holds it."""
         unique_shapes = [
             (poly, idx + 1) for idx, (poly, _) in enumerate(polygons)
         ]
@@ -151,7 +152,7 @@ class ReferenceArrays:
                 f"{edge_class}: raise max_crop_class"
             )
 
-        boundary_distance = normalize_boundary_distances(
+        boundary_distance, orientation = normalize_boundary_distances(
             np.uint8((labels_array > 0) & (labels_array != edge_class)),
             geom_type,
             cell_res,
@@ -159,6 +160,7 @@ class ReferenceArrays:
         return cls(
             labels_array=labels_array,
             boundary_distance=boundary_distance,
+            orientation=orientation,
             edge_array=edge_array,
         )
 

@@ -13,10 +13,11 @@ results, not an idealised version of them, without importing it:
   (1, 1); pixels outside the image are ignored.
 - ``create_boundary_distances``: ``cv2.distanceTransform(DIST_L2, 3)``, a
   3 x 3 chamfer transform (steps 0.955 and 1.3693) in OpenCV's 16.16 fixed
-  point, with pixels outside the image not zeros (``chamfer_distance``).
-
-Not ported: the Sobel orientation of ``create_boundary_distances`` and
-``merge_distances`` (nothing on the chip-creation path reads them).
+  point, with pixels outside the image not zeros (``chamfer_distance``);
+  its orientation is ``cv2.Sobel`` at ksize 5 (``sobel_5``) and
+  ``cv2.phase`` (``np.arctan2``, exact where cv2's is an approximation
+  within about 1.7e-4 rad).
+- ``merge_distances``: the same chamfer transform of the background.
 """
 
 import typing as T
@@ -165,12 +166,41 @@ def chamfer_distance(mask: np.ndarray) -> np.ndarray:
     return dist.astype(np.float32) * np.float32(1.0 / (1 << 16))
 
 
+# cv2's separable Sobel kernels at ksize 5: smoothing and first derivative.
+_SOBEL5_SMOOTH = np.array([1, 4, 6, 4, 1], dtype=np.float32)
+_SOBEL5_DERIV = np.array([-1, -2, 0, 2, 1], dtype=np.float32)
+
+
+def sobel_5(image: np.ndarray) -> T.Tuple[np.ndarray, np.ndarray]:
+    """float32 x and y derivatives of ``image`` as ``cv2.Sobel(image,
+    CV_32F, 1, 0, ksize=5)`` and ``(..., 0, 1, ksize=5)`` give them: the
+    derivative kernel correlated along one axis and the smoothing kernel
+    along the other, in float32, over cv2's default border
+    ``BORDER_REFLECT_101`` (scipy's ``mirror``). cv2's vector code rounds
+    some sums in another order, so the two differ within float32 rounding
+    of the sums."""
+    image = np.asarray(image, dtype=np.float32)
+
+    def separable(row_kernel, col_kernel):
+        along_rows = ndimage.correlate1d(image, row_kernel, axis=1, mode="mirror")
+        return ndimage.correlate1d(along_rows, col_kernel, axis=0, mode="mirror")
+
+    return (
+        separable(_SOBEL5_DERIV, _SOBEL5_SMOOTH),
+        separable(_SOBEL5_SMOOTH, _SOBEL5_DERIV),
+    )
+
+
 def create_boundary_distances(
     labels_array: np.ndarray, train_type: str, cell_res: float
-) -> T.Tuple[np.ndarray, np.ndarray, np.ndarray]:
-    """The uint8 mask, its connected segments and the distance of each mask
-    pixel from the mask's boundary, times ``cell_res`` (the JAX function's
-    first three results; its Sobel orientation is not ported)."""
+) -> T.Tuple[np.ndarray, np.ndarray, np.ndarray, np.ndarray]:
+    """The uint8 mask, its connected segments, the distance of each mask
+    pixel from the mask's boundary times ``cell_res``, and the orientation
+    of that distance's gradient in turns, [0, 1), 0 off the labels.
+
+    The gradient is the ksize-5 Sobel of the distance edge-padded by 5, its
+    angle ``arctan2(gy, gx)`` taken in [0, 2 pi) as ``cv2.phase`` gives it.
+    """
     if train_type.lower() == "polygon":
         mask = np.uint8(labels_array)
     else:
@@ -179,7 +209,12 @@ def create_boundary_distances(
     segments = ndimage.label(mask)[0]
     bdist = chamfer_distance(mask)
     bdist *= cell_res
-    return mask, segments, bdist
+
+    grad_x, grad_y = sobel_5(np.pad(bdist, 5, mode="edge"))
+    ori = np.mod(np.arctan2(grad_y, grad_x), 2 * np.pi)
+    ori = ori[5:-5, 5:-5] / np.deg2rad(360)
+    ori[labels_array == 0] = 0
+    return mask, segments, bdist, ori
 
 
 def normalize_boundary_distances(
@@ -187,10 +222,11 @@ def normalize_boundary_distances(
     train_type: str,
     cell_res: float,
     normalize: bool = True,
-) -> np.ndarray:
-    """Boundary distances divided by their segment's maximum (the JAX
-    function's first result; its orientation is not ported)."""
-    _, segments, bdist = create_boundary_distances(
+) -> T.Tuple[np.ndarray, np.ndarray]:
+    """Boundary distances divided by their segment's maximum, clipped to
+    [0, 1] (to [0, 1e9] without ``normalize``), and the orientation clipped
+    to [0, 1]; non-finite values become 1."""
+    _, segments, bdist, ori = create_boundary_distances(
         labels_array, train_type, cell_res
     )
     dist_max = 1e9
@@ -206,9 +242,11 @@ def normalize_boundary_distances(
             with np.errstate(divide="ignore", invalid="ignore"):
                 bdist = np.where(segments > 0, bdist / divisor, bdist)
 
-    return np.nan_to_num(
+    bdist = np.nan_to_num(
         bdist.clip(0, dist_max), nan=1.0, neginf=1.0, posinf=1.0
     )
+    ori = np.nan_to_num(ori.clip(0, 1), nan=1.0, neginf=1.0, posinf=1.0)
+    return bdist, ori
 
 
 def fillz(x: np.ndarray) -> np.ndarray:
@@ -217,6 +255,36 @@ def fillz(x: np.ndarray) -> np.ndarray:
     size = (1,) * (x.ndim - 2) + (3, 3)
     focal_mean = ndimage.uniform_filter(x, size=size, mode="reflect")
     return np.where(x == 0, focal_mean, x)
+
+
+def merge_distances(
+    foreground_distances: np.ndarray,
+    crop_mask: np.ndarray,
+    edge_mask: np.ndarray,
+    inverse: bool = True,
+    beta: float = 10.0,
+) -> np.ndarray:
+    """Merge the foreground distances with the background's own distance
+    transform, scaled to [0, 1]; arrays are (H, W). With ``inverse`` both
+    are taken as 1 - d; with ``beta`` != 1 both are raised to ``beta``.
+    Edge pixels are 1 (0 without ``inverse``)."""
+    background_mask = (crop_mask == 0) & (edge_mask == 0)
+    bdist = chamfer_distance(background_mask.astype("uint8"))
+    max_val = bdist.max()
+    if max_val > 0:
+        bdist = bdist / max_val
+    if inverse:
+        bdist = 1.0 - bdist
+        foreground = 1.0 - foreground_distances
+    else:
+        foreground = foreground_distances
+    if beta != 1:
+        bdist = np.nan_to_num(bdist**beta)
+        foreground = np.nan_to_num(foreground**beta)
+
+    distance = np.where(background_mask, bdist, foreground).astype("float32")
+    distance[edge_mask == 1] = 1.0 if inverse else 0.0
+    return distance
 
 
 # ---------------------------------------------------------------------------

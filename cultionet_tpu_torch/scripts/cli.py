@@ -20,10 +20,14 @@ or per-variable GeoTIFFs, and its polygons (``data/vector.py``).
 ``main(argv, device="cuda")`` runs on the card; the tests pass
 ``device="cpu"``. Without a card and with ``device="cuda"`` it raises.
 
+``import-torch`` converts a reference (jgrss/cultionet) Lightning
+checkpoint into the store ``ckpt/last_store`` that ``predict``,
+``train-transfer`` and ``model.py::load_model`` read
+(``utils/torch_params.py``).
+
 Deliberate differences: ``export --platform`` takes ``cuda`` or ``cpu``
 (the artifact runs on the device it was exported on), not JAX's StableHLO
-platforms. Not ported yet (it raises ``NotImplementedError``):
-``import-torch``. ``train --devices N`` launches N ranks (``--fsdp``
+platforms. ``train --devices N`` launches N ranks (``--fsdp``
 shards the large parameters) and ``predict --devices N`` runs a model
 replica on each of N cards (``train/fit.py``, ``predict.py``).
 ``--use-chipstore stream|hbm|auto``,
@@ -83,14 +87,6 @@ SUBCOMMAND_GROUPS = {
     CLISteps.VERSION: [],
 }
 
-# Subcommands that wait for a later part of the port, with the reason.
-NOT_PORTED = {
-    CLISteps.IMPORT_TORCH: (
-        "the Lightning checkpoint importer waits for the reference sources "
-        "(jgrss/cultionet) in the repository, the only thing it could be "
-        "tested against (ROADMAP 1.9)"
-    ),
-}
 EXPORT_PLATFORMS = ("cuda", "cpu")
 
 
@@ -719,6 +715,77 @@ def export_model(args: argparse.Namespace, argv=None, device="cuda") -> Path:
     return written
 
 
+def import_torch(args: argparse.Namespace, argv=None, device="cuda") -> None:
+    """Convert a reference PyTorch (Lightning) checkpoint into the port's
+    checkpoint store ``<ckpt_stem>_store`` (``best`` and ``last``, epoch
+    0, a fresh AdamW(1e-3) state), ready for ``predict`` and
+    ``train-transfer``. Model hyperparameters come from the checkpoint's
+    ``hyper_parameters`` when present, else from the CLI model flags, else
+    from the JAX command's defaults. An entry with no place in the model
+    or of the wrong shape fails the whole import
+    (``utils/torch_params.py::import_torch_state_dict``)."""
+    import torch
+
+    from ..train.checkpoint import Checkpointer
+    from ..train.fit import model_from_kwargs
+    from ..train.optim import build_optimizer
+    from ..train.step import create_train_state
+    from ..utils.torch_params import import_torch_state_dict
+
+    ppaths = setup_paths(args.project_path)
+    log_command(ppaths, args, argv)
+
+    ckpt = torch.load(args.torch_ckpt, map_location="cpu", weights_only=False)
+    state_dict = ckpt.get("state_dict", ckpt)
+    hp = dict(ckpt.get("hyper_parameters", {}))
+
+    def pick(name, cli_value, default=None):
+        return hp.get(name, cli_value if cli_value is not None else default)
+
+    attention = (
+        None if args.attention_weights == "none" else args.attention_weights
+    )
+    model_kwargs = dict(
+        in_time=int(pick("in_time", args.in_time, 12)),
+        hidden_channels=int(
+            pick("hidden_channels", args.hidden_channels, 32)
+        ),
+        dropout=float(pick("dropout", args.dropout, 0.1)),
+        activation_type=str(
+            pick("activation_type", args.activation_type, "SiLU")
+        ),
+        dilations=list(pick("dilations", args.dilations, [1, 2]) or [1, 2]),
+        res_block_type=str(
+            pick("res_block_type", args.res_block_type, "resa")
+        ),
+        attention_weights=pick("attention_weights", attention, "natten"),
+        pool_by_max=bool(pick("pool_by_max", args.pool_by_max, False)),
+        batchnorm_first=bool(
+            pick("batchnorm_first", args.batchnorm_first, False)
+        ),
+    )
+    in_channels = int(pick("in_channels", args.in_channels, 3))
+
+    model = model_from_kwargs(in_channels, model_kwargs)
+    state = create_train_state(
+        model, build_optimizer("AdamW", 1e-3), seed=0, device=device
+    )
+    prefix = (
+        "cultionet_model."
+        if any(k.startswith("cultionet_model.") for k in state_dict)
+        else ""
+    )
+    import_torch_state_dict(state_dict, state.model, prefix=prefix)
+
+    ckpt_file = Path(ppaths.ckpt_file)
+    store_dir = ckpt_file.parent / f"{ckpt_file.stem}_store"
+    store = Checkpointer(store_dir)
+    hyperparams = {**model_kwargs, "in_channels": in_channels}
+    store.save_best(state, epoch=0, metrics={}, hyperparams=hyperparams)
+    store.save_last(state, epoch=0, metrics={}, hyperparams=hyperparams)
+    logger.info(f"Imported {len(state_dict)} torch entries into {store_dir}")
+
+
 def spatial_kfoldcv(args: argparse.Namespace, argv=None, device="cuda") -> None:
     """Fit one model per fold, each validated on its held-out fold, and
     write the folds' best scores to ``ckpt/skfoldcv.json``. The folds are
@@ -760,10 +827,6 @@ def main(argv: T.Optional[T.Sequence[str]] = None, device="cuda") -> None:
     ``device``: the card unless the caller passes ``device="cpu"``."""
     args = build_parser().parse_args(argv)
     device = resolve_device(device)
-    if args.command in NOT_PORTED:
-        raise NotImplementedError(
-            f"{args.command} is not ported yet: {NOT_PORTED[args.command]}"
-        )
     if args.command == CLISteps.VERSION:
         print(__version__)
     elif args.command == CLISteps.CREATE:
@@ -774,6 +837,8 @@ def main(argv: T.Optional[T.Sequence[str]] = None, device="cuda") -> None:
         train_model(args, argv, device=device)
     elif args.command == CLISteps.TRAIN_TRANSFER:
         train_model(args, argv, transfer=True, device=device)
+    elif args.command == CLISteps.IMPORT_TORCH:
+        import_torch(args, argv, device=device)
     elif args.command == CLISteps.EXPORT:
         export_model(args, argv, device=device)
     elif args.command == CLISteps.PREDICT:

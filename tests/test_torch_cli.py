@@ -25,8 +25,8 @@
   ``--platform tpu`` is refused by name; ``skfoldcv`` over a partition
   file fits one fold per named polygon, and ``train --spatial-partitions
   FILE --partition-name NAME`` validates on that polygon's chips.
-- ``import-torch`` raises ``NotImplementedError`` naming the missing
-  reference sources; ``main`` with ``device="cuda"`` and no card raises.
+- ``main`` with ``device="cuda"`` and no card raises. ``import-torch``
+  is held against the JAX command in ``test_torch_import_torch.py``.
 """
 
 import dataclasses
@@ -374,14 +374,6 @@ def test_python_dash_m_entry_point():
         out = run("version")
         assert out.returncode != 0
         assert "device='cpu'" in out.stderr
-
-
-@pytest.mark.parametrize("command, item", [("import-torch", "1.9")])
-def test_refused_subcommands(tmp_path, command, item):
-    argv = [command, "-p", str(tmp_path), "--torch-ckpt", "x.ckpt"]
-    with pytest.raises(NotImplementedError, match=f"ROADMAP {item}") as err:
-        cli.main(argv, device="cpu")
-    assert "reference sources" in str(err.value)
 
 
 @pytest.fixture(scope="module")

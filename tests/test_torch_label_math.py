@@ -10,11 +10,17 @@ and scipy) against OpenCV and the JAX package (which calls OpenCV).
   ``all_touched`` on and off, class values above 255.
 - ``chamfer_distance`` equals OpenCV's own ``distanceTransform(DIST_L2,
   3)`` bit for bit (``cv2.ipp.setUseIPP(False)``), and the port's
-  ``normalize_boundary_distances`` the JAX one's first result within one
+  ``normalize_boundary_distances`` the JAX one's distances within one
   float32 ulp (measured: equal), the all-crop and no-crop masks included.
   cv2 hands the transform to Intel IPP where its build has IPP; IPP's
   float32 arithmetic differs from OpenCV's fixed point by up to 5e-6
   relative on these masks, held to 1e-5.
+- ``sobel_5`` equals ``cv2.Sobel(..., ksize=5)`` up to float32 rounding
+  (cv2 rounds its sums in another order), and the
+  orientation (``arctan2`` for ``cv2.phase``, which approximates the angle
+  within about 1.7e-4 rad) agrees with the JAX package's within 5e-5 turns
+  on the circle: a gradient with gy near 0 may land on either side of
+  0 / 1. ``merge_distances`` agrees with the JAX function within 1e-5.
 """
 
 import numpy as np
@@ -262,22 +268,128 @@ def test_normalize_boundary_distances_matches_jax(opencv_own_code, cell_res):
         labels.append((burned > 0).astype(np.uint8))
     for label in labels:
         for train_type in ("polygon", "boundary"):
-            got = lm.normalize_boundary_distances(label, train_type, cell_res)
-            want, _ = jax_lm.normalize_boundary_distances(label, train_type, cell_res)
+            got, got_ori = lm.normalize_boundary_distances(
+                label, train_type, cell_res
+            )
+            want, want_ori = jax_lm.normalize_boundary_distances(
+                label, train_type, cell_res
+            )
             assert got.dtype == want.dtype
             assert ulps(got, want) <= 1
-            _, segments, bdist = lm.create_boundary_distances(
+            assert got_ori.dtype == want_ori.dtype
+            assert turns_apart(got_ori, want_ori) <= 5e-5
+            mask, segments, bdist, ori = lm.create_boundary_distances(
                 label, train_type, cell_res
             )
-            _, jax_segments, jax_bdist, _ = jax_lm.create_boundary_distances(
-                label, train_type, cell_res
+            jax_mask, jax_segments, jax_bdist, jax_ori = (
+                jax_lm.create_boundary_distances(label, train_type, cell_res)
             )
+            np.testing.assert_array_equal(mask, jax_mask)
             np.testing.assert_array_equal(segments, jax_segments)
             assert ulps(bdist, jax_bdist) <= 1
-    # The all-crop mask normalizes to 1 everywhere.
-    np.testing.assert_array_equal(
-        lm.normalize_boundary_distances(labels[0], "polygon", cell_res), 1.0
+            assert turns_apart(ori, jax_ori) <= 5e-5
+    # The all-crop mask normalizes to 1 everywhere, its gradient is flat.
+    bdist, ori = lm.normalize_boundary_distances(labels[0], "polygon", cell_res)
+    np.testing.assert_array_equal(bdist, 1.0)
+    np.testing.assert_array_equal(ori, 0.0)
+
+
+def turns_apart(a: np.ndarray, b: np.ndarray) -> float:
+    """Largest distance between two arrays of angles in turns, on the
+    circle."""
+    d = np.abs(np.asarray(a, np.float64) - np.asarray(b, np.float64)) % 1.0
+    return float(np.minimum(d, 1.0 - d).max()) if d.size else 0.0
+
+
+def test_sobel_5_matches_cv2(opencv_own_code):
+    """On distance fields (what the orientation gives it), the all-crop
+    field among them, and on random float32 data. cv2's vector code rounds
+    its sums in another order, so the bound is float32 rounding: one
+    ulp of the largest input for each unit of the kernels' absolute sum,
+    16 x 6 = 96 (measured: at most 62)."""
+    rng = np.random.default_rng(21)
+    fields = [
+        np.pad(cv2.distanceTransform(mask, cv2.DIST_L2, 3) * 10.0, 5, mode="edge")
+        for mask in _masks(rng)[:20]
+    ]
+    fields += [
+        (rng.random(shape) * 300).astype(np.float32)
+        for shape in ((1, 1), (3, 7), (40, 51))
+    ]
+    for field in fields:
+        gx, gy = lm.sobel_5(field)
+        bound = 96 * np.abs(field).max() * 2.0**-23
+        for got, (dx, dy) in ((gx, (1, 0)), (gy, (0, 1))):
+            want = cv2.Sobel(field, cv2.CV_32F, dx, dy, ksize=5)
+            assert got.dtype == want.dtype == np.float32
+            np.testing.assert_allclose(got, want, rtol=0, atol=bound)
+
+
+@settings(max_examples=40, deadline=None, derandomize=True)
+@given(
+    rings=st.lists(st.tuples(ring, st.integers(1, 3)), min_size=1, max_size=5),
+    cell_res=st.sampled_from([1.0, 10.0, 0.3]),
+    train_type=st.sampled_from(["polygon", "boundary"]),
+)
+def test_orientation_hypothesis(rings, cell_res, train_type):
+    """The orientation of arbitrary burned rings, against the JAX
+    package's cv2 orientation on the circle."""
+    bounds = (0.0, 0.0, 40.0, 36.0)
+    shapes = [(np.asarray(r + r[:1], dtype=np.float64), v) for r, v in rings]
+    label = (lm.polygons_to_array(shapes, bounds, (36, 40)) > 0).astype(np.uint8)
+    was = cv2.ipp.useIPP()
+    cv2.ipp.setUseIPP(False)
+    try:
+        _, _, _, want = jax_lm.create_boundary_distances(label, train_type, cell_res)
+    finally:
+        cv2.ipp.setUseIPP(was)
+    _, _, _, got = lm.create_boundary_distances(label, train_type, cell_res)
+    assert got.dtype == want.dtype
+    assert turns_apart(got, want) <= 5e-5
+
+
+@pytest.mark.parametrize("beta", [1.0, 10.0])
+@pytest.mark.parametrize("inverse", [True, False])
+def test_merge_distances_matches_jax(opencv_own_code, inverse, beta):
+    rng = np.random.default_rng(31 + int(beta) + 2 * inverse)
+    bounds = (0.0, 0.0, 50.0, 44.0)
+    cases = [
+        (np.zeros((44, 50), np.uint8), np.zeros((44, 50), np.uint8)),
+        (np.ones((44, 50), np.uint8), np.zeros((44, 50), np.uint8)),
+    ]
+    for _ in range(6):
+        burned = lm.polygons_to_array(seeded_shapes(rng, bounds, 8), bounds, (44, 50))
+        edge = lm.edge_gradient(burned)
+        cases.append(((burned > 0).astype(np.uint8) * (1 - edge), edge))
+    for crop, edge in cases:
+        fg, _ = lm.normalize_boundary_distances(crop, "polygon", 1.0)
+        got = lm.merge_distances(fg, crop, edge, inverse=inverse, beta=beta)
+        want = jax_lm.merge_distances(fg, crop, edge, inverse=inverse, beta=beta)
+        assert got.dtype == want.dtype == np.float32
+        np.testing.assert_allclose(got, want, rtol=0, atol=1e-5)
+
+
+def test_label_math_imports_no_opencv():
+    """The port's label math and ``ModelOutputs`` run where cv2 cannot be
+    imported."""
+    import subprocess
+    import sys
+
+    code = (
+        "import sys; sys.modules['cv2'] = None\n"
+        "import numpy as np\n"
+        "from cultionet_tpu_torch.data import label_math as lm\n"
+        "from cultionet_tpu_torch.utils.reshape import ModelOutputs\n"
+        "label = np.zeros((12, 12), np.uint8); label[2:9, 3:10] = 1\n"
+        "bdist, ori = lm.normalize_boundary_distances(label, 'polygon', 1.0)\n"
+        "lm.merge_distances(bdist, label, lm.edge_gradient(label))\n"
+        "ModelOutputs(bdist, ori, bdist).stack_outputs()\n"
+        "assert 'cv2' not in {m.split('.')[0] for m in sys.modules if sys.modules[m]}\n"
     )
+    result = subprocess.run(
+        [sys.executable, "-c", code], capture_output=True, text=True
+    )
+    assert result.returncode == 0, result.stderr
 
 
 def test_fillz_matches_jax():
