@@ -1,0 +1,12 @@
+"""The model's FLOPs a second (roofline.py's count of the cell's work)
+over the window, as a share of the card's bf16 dense peak."""
+
+from portbench.metrics.readers import mfu_percent
+
+LAYER = "model step: models/ forward and backward"
+UNIT, BETTER, SOURCE, MOVES = "%", "higher", "host_clock", "train_chips_per_s"
+WORKLOADS = ["train-conv-hbm"]
+
+
+def read(ctx):
+    return mfu_percent(ctx)
