@@ -21,6 +21,7 @@ from pathlib import Path
 import numpy as np
 import torch
 
+from ..utils.profiling import to_device
 from .constant import SCALE_FACTOR
 
 Tensor = torch.Tensor
@@ -177,7 +178,7 @@ class Batch:
         waiting when the source is pinned host memory)."""
         return self.replace(
             **{
-                name: value.to(device, non_blocking=True)
+                name: to_device(value, device, non_blocking=True)
                 for name, value in self.tensors().items()
             }
         )

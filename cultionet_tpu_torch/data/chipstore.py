@@ -35,6 +35,7 @@ from pathlib import Path
 import numpy as np
 import torch
 
+from ..utils.profiling import to_device
 from .batch import Batch
 from .constant import SCALE_FACTOR
 
@@ -443,7 +444,7 @@ class _PinnedRing:
             if buffer is None or buffer.shape != source.shape:
                 buffer = buffers[name] = torch.empty_like(source).pin_memory()
             buffer.copy_(source)
-            moved[name] = buffer.to(self.device, non_blocking=True)
+            moved[name] = to_device(buffer, self.device, non_blocking=True)
         event = torch.cuda.Event()
         event.record(torch.cuda.current_stream(self.device))
         self.events[k] = event

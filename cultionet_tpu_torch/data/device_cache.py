@@ -30,6 +30,7 @@ import numpy as np
 import torch
 
 from ..utils.device import resolve_device
+from ..utils.profiling import to_device
 from .batch import Batch
 from .chipstore import quantize
 
@@ -123,7 +124,7 @@ class DeviceChipCache:
             a.nbytes for a in host.values() if a is not None
         )
         self.arrays: T.Dict[str, T.Optional[Tensor]] = {
-            name: None if value is None else torch.from_numpy(value).to(self.device)
+            name: None if value is None else to_device(torch.from_numpy(value), self.device)
             for name, value in host.items()
         }
 
@@ -173,7 +174,7 @@ class DeviceChipCache:
 
     def __iter__(self) -> T.Iterator[IndexBatch]:
         table = torch.from_numpy(self._next_epoch_indices().astype(np.int64))
-        for row in table.to(self.device):
+        for row in to_device(table, self.device):
             yield IndexBatch(row)
 
 

@@ -49,6 +49,7 @@ from .ops.flags import cuda_natten_enabled, cuda_temporal_enabled
 from .train.precision import resolve_dtype
 from .utils.device import resolve_device
 from .utils.logging import set_color_logger
+from .utils.profiling import span, to_device, to_host
 
 logger = set_color_logger(__name__)
 
@@ -362,17 +363,20 @@ class ExportedPredictor:
             lat = np.zeros((b,), np.float32)
         if lon is None:
             lon = np.zeros((b,), np.float32)
-        outs = self.call_on_device(
-            *(
-                torch.as_tensor(np.asarray(a, dtype)).to(self.device)
-                for a, dtype in ((x, np.int16), (lat, np.float32),
-                                 (lon, np.float32))
-            )
-        )
-        return {
-            name: val.cpu().numpy()
-            for name, val in zip(self.meta["outputs"], outs)
-        }
+        with span("serve.call"):
+            with span("serve.copy"):
+                inputs = [
+                    to_device(torch.as_tensor(np.asarray(a, dtype)), self.device)
+                    for a, dtype in ((x, np.int16), (lat, np.float32),
+                                     (lon, np.float32))
+                ]
+            with span("serve.program"):
+                outs = self.call_on_device(*inputs)
+            with span("serve.readback"):
+                return {
+                    name: to_host(val).numpy()
+                    for name, val in zip(self.meta["outputs"], outs)
+                }
 
     def call_on_device(self, x, lat, lon):
         """Run the program on tensors already on its device and return its

@@ -18,6 +18,7 @@ from .train.fit import fit as _fit
 from .train.optim import build_optimizer
 from .train.step import TrainState, create_train_state, make_predict_step
 from .utils.device import resolve_device
+from .utils.profiling import to_host
 
 # Checkpoint hyperparams that are not model arguments.
 _NON_MODEL_KEYS = (
@@ -121,7 +122,7 @@ def predict(
     results = []
     for batch in loader:
         outputs = predict_step(batch.x, batch.lat, batch.lon)
-        host = {name: outputs[name].cpu().numpy() for name in BAND_NAMES}
+        host = {name: to_host(outputs[name]).numpy() for name in BAND_NAMES}
         if writer is not None:
             writer(batch, host)
         else:

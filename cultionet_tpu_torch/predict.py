@@ -42,6 +42,7 @@ from .data.loader import ChipLoader
 from .enums import InferenceNames
 from .train.step import make_predict_step
 from .utils.device import resolve_device
+from .utils.profiling import span, to_host
 
 Tensor = torch.Tensor
 
@@ -260,18 +261,20 @@ class ScenePredictor:
         def batches():
             for i in range(0, len(jobs), self.batch_size):
                 chunk = jobs[i : i + self.batch_size]
-                windows = []
-                for job in chunk:
-                    w = _slice_window(x, job)
-                    pad_b = size - w.shape[1]
-                    pad_r = size - w.shape[2]
-                    if pad_b > 0 or pad_r > 0:
-                        w = np.pad(
-                            w, ((0, 0), (0, pad_b), (0, pad_r), (0, 0))
-                        )
-                    windows.append(w)
+                with span("predict.cut"):
+                    windows = []
+                    for job in chunk:
+                        w = _slice_window(x, job)
+                        pad_b = size - w.shape[1]
+                        pad_r = size - w.shape[2]
+                        if pad_b > 0 or pad_r > 0:
+                            w = np.pad(
+                                w, ((0, 0), (0, pad_b), (0, pad_r), (0, 0))
+                            )
+                        windows.append(w)
+                    windows = np.stack(windows)
                 yield (
-                    np.stack(windows),
+                    windows,
                     np.full(len(chunk), lat),
                     np.full(len(chunk), lon),
                     [j["row_off"] for j in chunk],
@@ -292,30 +295,36 @@ class ScenePredictor:
         window_size: int,
         padding: int,
     ) -> T.Tuple[np.ndarray, T.Tuple[int, int]]:
-        pad = padding
-        size = window_size + 2 * pad
-        weights = taper_weights(window_size, pad, device=self.device)
+        with span("predict.scene"):
+            pad = padding
+            size = window_size + 2 * pad
+            weights = taper_weights(window_size, pad, device=self.device)
 
-        # Buffer coords = scene coords + pad, so the padded window starting
-        # at scene row (row_off - pad) lands at buffer row row_off >= 0.
-        buf_h = scene_h + 2 * pad + size
-        buf_w = scene_w + 2 * pad + size
-        scene_sum = torch.zeros((buf_h, buf_w, 3), device=self.device)
-        scene_weight = torch.full((buf_h, buf_w, 1), 1e-8, device=self.device)
-
-        for windows, lat, lon, row0s, col0s in batches:
-            outputs = self.predict_step(windows, lat, lon)
-            preds = torch.cat(
-                [outputs[name] for name in BAND_NAMES], dim=-1
-            )  # (B, S, S, 3)
-            accumulate_windows(
-                scene_sum, scene_weight, preds, weights, row0s, col0s
+            # Buffer coords = scene coords + pad, so the padded window
+            # starting at scene row (row_off - pad) lands at buffer row
+            # row_off >= 0.
+            buf_h = scene_h + 2 * pad + size
+            buf_w = scene_w + 2 * pad + size
+            scene_sum = torch.zeros((buf_h, buf_w, 3), device=self.device)
+            scene_weight = torch.full(
+                (buf_h, buf_w, 1), 1e-8, device=self.device
             )
 
-        blended = scene_sum / scene_weight
-        # Scene pixel (r, c) lives at buffer (r + pad, c + pad).
-        result = blended[pad : pad + scene_h, pad : pad + scene_w]
-        return result.cpu().numpy(), (scene_h, scene_w)
+            for windows, lat, lon, row0s, col0s in batches:
+                outputs = self.predict_step(windows, lat, lon)
+                with span("predict.blend"):
+                    preds = torch.cat(
+                        [outputs[name] for name in BAND_NAMES], dim=-1
+                    )  # (B, S, S, 3)
+                    accumulate_windows(
+                        scene_sum, scene_weight, preds, weights, row0s, col0s
+                    )
+
+            with span("predict.readback"):
+                blended = scene_sum / scene_weight
+                # Scene pixel (r, c) lives at buffer (r + pad, c + pad).
+                result = blended[pad : pad + scene_h, pad : pad + scene_w]
+                return to_host(result).numpy(), (scene_h, scene_w)
 
     def predict_to_raster(
         self,

@@ -85,6 +85,7 @@ from ..parallel.mesh import (
 )
 from ..parallel.sharded import make_sharded_eval_step, make_sharded_train_step
 from ..utils.device import resolve_device
+from ..utils.profiling import span
 from .checkpoint import Checkpointer
 from .lr_finder import lr_find
 from .optim import build_momentum_schedule, build_optimizer, build_schedule
@@ -698,23 +699,29 @@ def _fit_rank(
     )
     for epoch in range(start_epoch, params.epochs):
         train_rows = []
-        for batch in train_loader:
+        batches = iter(train_loader)
+        while True:
+            with span("fit.data_wait"):
+                batch = next(batches, None)
+            if batch is None:
+                break
             state, logs = train_step(state, batch, generator)
             train_rows.append((params.batch_size, logs))
 
         val_rows = []
         batch_metric_rows = []
-        for batch_idx, batch in enumerate(val_loader):
-            val_rows.append((batch.num_samples, evaluate(batch)))
-            if params.save_batch_val_metrics and params.ckpt_file is not None:
-                batch_metric_rows.append(
-                    {
-                        "epoch": epoch,
-                        "batch": batch_idx,
-                        "num_samples": batch.num_samples,
-                        **{k: float(v) for k, v in val_rows[-1][1].items()},
-                    }
-                )
+        with span("fit.validate"):
+            for batch_idx, batch in enumerate(val_loader):
+                val_rows.append((batch.num_samples, evaluate(batch)))
+                if params.save_batch_val_metrics and params.ckpt_file is not None:
+                    batch_metric_rows.append(
+                        {
+                            "epoch": epoch,
+                            "batch": batch_idx,
+                            "num_samples": batch.num_samples,
+                            **{k: float(v) for k, v in val_rows[-1][1].items()},
+                        }
+                    )
         if batch_metric_rows and lead:
             _append_batch_metrics(
                 Path(params.ckpt_file).parent, batch_metric_rows
@@ -761,16 +768,17 @@ def _fit_rank(
                     avg += (current[n] - avg) / swa_count
 
         if ckpt is not None:
-            ckpt.save_last(
-                state, epoch, metrics=row, hyperparams=hyperparams,
-                generator=generator,
-            )
-            if row["val_score"] < best_score:
-                best_score = row["val_score"]
-                ckpt.save_best(
+            with span("fit.save"):
+                ckpt.save_last(
                     state, epoch, metrics=row, hyperparams=hyperparams,
                     generator=generator,
                 )
+                if row["val_score"] < best_score:
+                    best_score = row["val_score"]
+                    ckpt.save_best(
+                        state, epoch, metrics=row, hyperparams=hyperparams,
+                        generator=generator,
+                    )
 
     if params.model_pruning:
         # The magnitude threshold is global: FSDP's shards gathered whole.

@@ -35,6 +35,7 @@ from ..nn.dropout import dropout_rng
 from ..nn.init import init_parameters_
 from ..parallel.mesh import gather_for_loss, plain_named_parameters
 from ..utils.device import resolve_device
+from ..utils.profiling import span, to_device
 from .labels import get_true_labels
 from .loss_registry import LOSS_DICT
 from .metrics import fbeta_score, mae, matthews_corrcoef, mse, probas_to_labels
@@ -257,35 +258,41 @@ def make_train_step(
     def train_step(
         state: TrainState, batch: Batch, generator: torch.Generator
     ) -> T.Tuple[TrainState, T.Dict[str, Tensor]]:
-        _check_generator(generator, device)
-        batch = batch.to(device).dequantize()
-        if norm is not None:
-            batch = clip_unit(batch)
-        if augment:
-            batch = augment_batch_on_device(
-                batch,
-                generator,
-                dihedral=device_augment,
-                noise_sigma=device_augment_noise,
-            )
-        if norm is not None:
-            batch = zscore(batch, norm)
-        loss, report = forward_loss(
-            state.model,
-            batch,
-            generator,
-            compute_dtype,
-            loss_name=loss_name,
-            edge_class=edge_class,
-            class_weights=class_weights,
-        )
-        loss.backward()
-        if reduce_gradients is not None:
-            reduce_gradients(state.model)
-        state.optimizer.step()
-        state.step += 1
-        logs = {"loss": loss, **report}
-        return state, {name: value.detach() for name, value in logs.items()}
+        with span("train.step", join=True):
+            _check_generator(generator, device)
+            with span("train.prepare"):
+                batch = batch.to(device).dequantize()
+                if norm is not None:
+                    batch = clip_unit(batch)
+                if augment:
+                    batch = augment_batch_on_device(
+                        batch,
+                        generator,
+                        dihedral=device_augment,
+                        noise_sigma=device_augment_noise,
+                    )
+                if norm is not None:
+                    batch = zscore(batch, norm)
+            with span("train.forward"):
+                loss, report = forward_loss(
+                    state.model,
+                    batch,
+                    generator,
+                    compute_dtype,
+                    loss_name=loss_name,
+                    edge_class=edge_class,
+                    class_weights=class_weights,
+                )
+            with span("train.backward"):
+                loss.backward()
+            if reduce_gradients is not None:
+                with span("train.reduce"):
+                    reduce_gradients(state.model)
+            with span("train.optimizer"):
+                state.optimizer.step()
+            state.step += 1
+            logs = {"loss": loss, **report}
+            return state, {name: value.detach() for name, value in logs.items()}
 
     return train_step
 
@@ -309,7 +316,10 @@ def make_hbm_train_step(
     device = resolve_device(train_kwargs.get("device", "cuda"))
 
     def step(state, arrays, indices, generator):
-        return inner(state, gather_batch(arrays, indices.to(device)), generator)
+        with span("train.step"):
+            with span("train.gather"):
+                batch = gather_batch(arrays, to_device(indices, device))
+            return inner(state, batch, generator)
 
     return step
 
@@ -437,15 +447,15 @@ def make_predict_step(
     run_model.eval()
 
     def on_device(value):
-        return None if value is None else torch.as_tensor(value).to(device)
+        return None if value is None else to_device(torch.as_tensor(value), device)
 
     def predict_step(
         x: Tensor, lat: T.Optional[Tensor] = None, lon: T.Optional[Tensor] = None
     ) -> T.Dict[str, T.Optional[Tensor]]:
         with torch.inference_mode():
-            return _inference_apply(
-                run_model, on_device(x), compute_dtype,
-                on_device(lat), on_device(lon),
-            )
+            with span("predict.copy"):
+                x, lat, lon = on_device(x), on_device(lat), on_device(lon)
+            with span("predict.forward"):
+                return _inference_apply(run_model, x, compute_dtype, lat, lon)
 
     return predict_step

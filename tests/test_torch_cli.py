@@ -11,7 +11,8 @@
   its own distance code, see ``test_torch_label_math.py``), and
   ``_norm_values`` gives JAX's ``NormValues``.
 - ``train`` (1 epoch, hidden 8) writes ``last``/``best``, the norm file,
-  ``classes.info`` and the commands archive, and ``--profiler`` a trace;
+  ``classes.info`` and the commands archive, and ``--profiler`` a trace
+  and ``spans.json`` with the fit loop's and the step's spans;
   ``skfoldcv --k-folds 2`` fits two folds; ``version`` prints.
 - ``predict`` with the trained conv checkpoint ``tests/data/golden/ckpt``
   (translated into a port store) matches ``golden.tif`` on >= 99.9% of
@@ -210,6 +211,12 @@ def test_train_writes_checkpoints_and_archive(tmp_path):
     assert (project / "ckpt" / "last.norm.npz").is_file()
     assert (project / "ckpt" / "history.csv").is_file()
     assert (trace / "trace.json").stat().st_size > 0
+    spans = json.loads((trace / "spans.json").read_text())["spans"]
+    assert {"fit.data_wait", "fit.validate", "fit.save", "train.step",
+            "train.forward", "train.backward", "train.optimizer"} <= set(spans)
+    # One wait more than steps: the one that finds the epoch's end.
+    assert spans["fit.data_wait"]["count"] == spans["train.step"]["count"] + 1
+    assert spans["fit.validate"]["count"] == spans["fit.save"]["count"] == 1
     archived = sorted((project / "commands").glob("*.json"))
     assert [p.name.split("_")[0] for p in archived] == ["create", "train"]
     payload = json.loads(archived[1].read_text())
