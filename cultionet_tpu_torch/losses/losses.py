@@ -164,8 +164,9 @@ def class_balanced_mse_loss(
     else:
         neg_mask = targets <= 0.5
         pos_mask = ~neg_mask
-        target_count = torch.tensor(
-            float(targets.numel()), dtype=inputs.dtype, device=inputs.device
+        # Filled on the device: no copy from the host.
+        target_count = torch.full(
+            (), float(targets.numel()), dtype=inputs.dtype, device=inputs.device
         )
 
     sq = (inputs - targets) ** 2

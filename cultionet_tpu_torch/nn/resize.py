@@ -29,10 +29,27 @@ def _interp_matrix(out_size: int, in_size: int) -> np.ndarray:
     return mat
 
 
+@lru_cache(maxsize=None)
+def _matrix_on(
+    out_size: int, in_size: int, dtype: torch.dtype, device: torch.device
+) -> Tensor:
+    """The interpolation matrix on ``device``, copied there once (read
+    only). Made outside inference mode, so that a training forward may
+    save it for its backward."""
+    with torch.inference_mode(False):
+        return torch.from_numpy(_interp_matrix(out_size, in_size)).to(
+            device=device, dtype=dtype
+        )
+
+
 def _matrix(out_size: int, in_size: int, like: Tensor) -> Tensor:
-    return torch.from_numpy(_interp_matrix(out_size, in_size)).to(
-        device=like.device, dtype=like.dtype
-    )
+    if type(like) is not torch.Tensor:
+        # A tracer's tensor (torch.export): the matrix is a constant of
+        # the traced program, and no tracer's tensor enters the cache.
+        return torch.from_numpy(_interp_matrix(out_size, in_size)).to(
+            device=like.device, dtype=like.dtype
+        )
+    return _matrix_on(out_size, in_size, like.dtype, like.device)
 
 
 def resize_bilinear_align_corners(x: Tensor, size) -> Tensor:

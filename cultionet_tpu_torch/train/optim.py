@@ -14,9 +14,21 @@ Under FSDP (``parallel/mesh.py::shard_state_fsdp``) the sharded parameters
 are DTensors: the global norm sums every shard's squares over the group,
 and the torch optimizer runs its per-tensor loop (its multi-tensor kernels
 refuse a mix of DTensors and tensors).
+
+Adam and AdamW on unsharded parameters apply the update themselves
+(``Optimizer.device_scalars``), on every device: torch's multi-tensor
+arithmetic, with the scalars that change from step to step (the learning
+rate, AdamW's scheduled beta1 and the bias corrections) read from 0-d
+tensors beside the parameters that ``fill_scalars`` sets before each
+update. A CUDA graph of the train step (``train/graphed.py``) then replays
+each step's schedule; torch's own multi-tensor and fused Adam read a
+tensor beta1 on the host, which a capture refuses. The torch optimizer
+holds the state, so ``state_dict`` keeps its layout; it runs its own
+update only on FSDP's DTensors.
 """
 
 import dataclasses
+import itertools
 import math
 import typing as T
 
@@ -243,9 +255,21 @@ def global_norm(grads: T.List[Tensor]) -> Tensor:
     return squares.sqrt()
 
 
+def _on_device_scalars(params: T.List[Tensor], spec: OptimizerSpec) -> bool:
+    """Whether Adam's update runs on device scalars: Adam or AdamW over
+    parameters none of which is sharded."""
+    return (
+        spec.optimizer in ("Adam", "AdamW")
+        and bool(params)
+        and not any(is_sharded(p) for p in params)
+    )
+
+
 class Optimizer:
     """An ``OptimizerSpec`` bound to parameters. ``count`` is the number of
-    updates applied (optax's inner count); the schedules are read at it."""
+    updates applied (optax's inner count); the schedules are read at it.
+    ``generation`` counts ``load_state_dict`` calls, which replace the
+    state's tensors."""
 
     def __init__(
         self,
@@ -262,9 +286,18 @@ class Optimizer:
         self.trainable = list(trainable)
         self.count = 0
         self.mini_step = 0
+        self.generation = 0
         self._acc: T.Optional[T.List[Tensor]] = None
         lr = self._learning_rate()
         foreach = False if any(is_sharded(p) for p in params) else None
+        self.device_scalars = _on_device_scalars(params, spec)
+        if self.device_scalars:
+            # The update's scalars, filled before each update.
+            self.scalars = {
+                name: torch.zeros((), dtype=torch.float32, device=params[0].device)
+                for name in ("decay", "beta1", "one_minus_beta1", "bc2_sqrt",
+                             "neg_step_size")
+            }
         if spec.optimizer == "AdamW":
             self.torch_optimizer = torch.optim.AdamW(
                 params,
@@ -273,11 +306,13 @@ class Optimizer:
                 eps=spec.eps,
                 weight_decay=spec.weight_decay,
                 foreach=foreach,
+                # Loads put the step counts beside the parameters.
+                capturable=self.device_scalars,
             )
         elif spec.optimizer == "Adam":
             self.torch_optimizer = torch.optim.Adam(
                 params, lr=lr, betas=(0.9, 0.999), eps=spec.eps,
-                foreach=foreach,
+                foreach=foreach, capturable=self.device_scalars,
             )
         elif spec.optimizer == "RAdam":
             self.torch_optimizer = OptaxRAdam(
@@ -317,6 +352,59 @@ class Optimizer:
         torch._foreach_mul_([local_part(g) for g in grads], scale)
         return grads
 
+    def fill_scalars(self) -> None:
+        """Set the device scalars of the next update (update ``count + 1``)
+        from the schedules, in place; each is computed in float64 on the
+        host, as torch's multi-tensor Adam computes them, and rounded to
+        fp32 once. Plain Adam keeps beta1 at 0.9 (``build_optimizer``)."""
+        group = self.torch_optimizer.param_groups[0]
+        lr = self._learning_rate()
+        b1 = self._beta1() if self.spec.optimizer == "AdamW" else 0.9
+        b2 = group["betas"][1]
+        t = self.count + 1
+        values = {
+            "decay": 1.0 - lr * group["weight_decay"],
+            "beta1": b1,
+            "one_minus_beta1": 1.0 - b1,
+            "bc2_sqrt": math.sqrt(1.0 - b2**t),
+            "neg_step_size": -lr / (1.0 - b1**t),
+        }
+        for name, value in values.items():
+            self.scalars[name].fill_(value)
+
+    def _adam_update(self, params: T.List[Tensor], grads: T.List[Tensor]) -> None:
+        """Adam's update (AdamW's: decoupled weight decay) with torch's
+        multi-tensor ops and state, on the device scalars. The first moment
+        is ``beta1 m + (1 - beta1) g`` (torch interpolates: the same up to
+        rounding)."""
+        opt = self.torch_optimizer
+        group = opt.param_groups[0]
+        b2 = group["betas"][1]
+        steps, exp_avgs, exp_avg_sqs = [], [], []
+        for p in params:
+            slot = opt.state[p]
+            if not slot:
+                slot["step"] = torch.zeros((), dtype=torch.float32, device=p.device)
+                slot["exp_avg"] = torch.zeros_like(p, memory_format=torch.preserve_format)
+                slot["exp_avg_sq"] = torch.zeros_like(p, memory_format=torch.preserve_format)
+            steps.append(slot["step"])
+            exp_avgs.append(slot["exp_avg"])
+            exp_avg_sqs.append(slot["exp_avg_sq"])
+        s = self.scalars
+        torch._foreach_add_(steps, 1.0)
+        if group["weight_decay"] != 0 and self.spec.optimizer == "AdamW":
+            torch._foreach_mul_(params, s["decay"])
+        torch._foreach_mul_(exp_avgs, s["beta1"])
+        torch._foreach_add_(exp_avgs, torch._foreach_mul(grads, s["one_minus_beta1"]))
+        torch._foreach_mul_(exp_avg_sqs, b2)
+        torch._foreach_addcmul_(exp_avg_sqs, grads, grads, 1.0 - b2)
+        denom = torch._foreach_sqrt(exp_avg_sqs)
+        torch._foreach_div_(denom, s["bc2_sqrt"])
+        torch._foreach_add_(denom, group["eps"])
+        # p + m / (denom / -step_size): torch's capturable form.
+        torch._foreach_div_(denom, s["neg_step_size"])
+        torch._foreach_addcdiv_(params, exp_avgs, denom)
+
     @torch.no_grad()
     def step(self) -> bool:
         """Consume the parameters' gradients; returns whether an update was
@@ -335,6 +423,21 @@ class Optimizer:
             if n != k - 1:
                 return False
             grads, self._acc = self._acc, None
+
+        if self.device_scalars:
+            # A CUDA graph's capture must not record the fills: the replay's
+            # caller fills them for each replayed update.
+            device = self.scalars["beta1"].device
+            if not (device.type == "cuda" and torch.cuda.is_current_stream_capturing()):
+                self.fill_scalars()
+            grads = self._clip(grads)
+            self._adam_update(
+                list(itertools.compress(self.params, self.trainable)),
+                list(itertools.compress(grads, self.trainable)),
+            )
+            self.zero_grad()
+            self.count += 1
+            return True
 
         for group in self.torch_optimizer.param_groups:
             group["lr"] = self._learning_rate()
@@ -387,6 +490,7 @@ class Optimizer:
             for index, slot in torch_state["state"].items()
         }
         self.torch_optimizer.load_state_dict(torch_state)
+        self.generation += 1
         self.count = int(state["count"])
         self.mini_step = int(state["mini_step"])
         acc = state["acc"]

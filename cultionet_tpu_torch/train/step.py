@@ -36,6 +36,7 @@ from ..nn.init import init_parameters_
 from ..parallel.mesh import gather_for_loss, plain_named_parameters
 from ..utils.device import resolve_device
 from ..utils.profiling import span, to_device
+from .graphed import GraphedStep
 from .labels import get_true_labels
 from .loss_registry import LOSS_DICT
 from .metrics import fbeta_score, mae, matthews_corrcoef, mse, probas_to_labels
@@ -121,9 +122,7 @@ def calc_loss(
     if class_weights is not None:
 
         def weighted(labels: Tensor, weights) -> Tensor:
-            w = torch.as_tensor(
-                np.asarray(weights), dtype=torch.float32, device=labels.device
-            )
+            w = torch.as_tensor(weights, dtype=torch.float32, device=labels.device)
             return mask * torch.sqrt(torch.where(labels == 1, w[1], w[0]))
 
         edge_mask = weighted(edge_true, class_weights["edge"])
@@ -248,11 +247,17 @@ def make_train_step(
     statistics stay fp32 (``nn/blocks.py::BatchNorm``). The logs hold
     0-d tensors on the device (reading them waits for the step).
     ``reduce_gradients(model)`` runs between the backward and the optimizer
-    (the data-parallel all-reduce, ``parallel/sharded.py``).
+    (the data-parallel all-reduce, ``parallel/sharded.py``); the step
+    carries it as ``step.reduce_gradients``.
     """
     device = resolve_device(device)
     compute_dtype = resolve_dtype(precision)
     norm = norm_tensors(norm_stats, device)
+    if class_weights is not None:  # on the device once, not copied each step
+        class_weights = {
+            name: torch.as_tensor(np.asarray(w), dtype=torch.float32, device=device)
+            for name, w in class_weights.items()
+        }
     augment = device_augment or device_augment_noise > 0
 
     def train_step(
@@ -294,6 +299,7 @@ def make_train_step(
             logs = {"loss": loss, **report}
             return state, {name: value.detach() for name, value in logs.items()}
 
+    train_step.reduce_gradients = reduce_gradients
     return train_step
 
 
@@ -310,16 +316,23 @@ def make_hbm_train_step(
     (``data/device_cache.py``) on the device, then runs the train step
     ``inner`` on them (by default ``make_train_step(**train_kwargs)``; the
     sharded step under data parallelism). The index vector is all that a
-    step needs from the host."""
+    step needs from the host. Where the step can see that it is safe
+    (``train/graphed.py::eager_reason``), it is captured as one CUDA graph
+    on its third call and replayed from then on."""
     if inner is None:
         inner = make_train_step(**train_kwargs)
     device = resolve_device(train_kwargs.get("device", "cuda"))
 
+    def eager(state, arrays, indices, generator):
+        with span("train.gather"):
+            batch = gather_batch(arrays, to_device(indices, device))
+        return inner(state, batch, generator)
+
+    graphed = GraphedStep(eager, inner)
+
     def step(state, arrays, indices, generator):
         with span("train.step"):
-            with span("train.gather"):
-                batch = gather_batch(arrays, to_device(indices, device))
-            return inner(state, batch, generator)
+            return graphed(state, arrays, indices, generator)
 
     return step
 

@@ -18,6 +18,8 @@ cultionet_tpu/utils/profiling.py::profile_trace, on ``torch.profiler``).
   serve paths (``h2d_bytes``, ``d2h_bytes``, and ``blocking_copies``, those
   made with ``non_blocking=False``, each of which makes the host wait for
   the stream), always on; ``to_device`` and ``to_host`` copy and count.
+  ``graph_captures`` and ``graph_replays`` count the train step's CUDA
+  graph captures and replays (``train/graphed.py``, ``add_count``).
   ``counters()`` adds the kernel launch counters (``ops/*_cuda.py``).
 - ``profile_trace(dir)``: profiles a block, writes the Chrome trace
   (``trace.json``) and the spans' totals with the card's idle time under
@@ -36,7 +38,10 @@ import torch
 
 PREFIX = "cultionet."
 MAX_RECORDS = 200_000
-COUNTS: T.Dict[str, int] = {"h2d_bytes": 0, "d2h_bytes": 0, "blocking_copies": 0}
+COUNTS: T.Dict[str, int] = {
+    "h2d_bytes": 0, "d2h_bytes": 0, "blocking_copies": 0,
+    "graph_captures": 0, "graph_replays": 0,
+}
 
 _autograd_profiler = torch.autograd.profiler
 _lock = threading.Lock()
@@ -194,6 +199,12 @@ def _count(key: str, out: torch.Tensor, non_blocking: bool) -> None:
         COUNTS[key] += out.numel() * out.element_size()
         if not non_blocking:
             COUNTS["blocking_copies"] += 1
+
+
+def add_count(key: str, n: int = 1) -> None:
+    """Add ``n`` to ``COUNTS[key]``."""
+    with _lock:
+        COUNTS[key] += n
 
 
 def to_device(value: torch.Tensor, device, non_blocking: bool = False) -> torch.Tensor:
