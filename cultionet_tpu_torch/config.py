@@ -6,6 +6,8 @@ configuration written for one package reads in the other. Every field
 runs: the model's (``remat`` included), the data path's
 (``use_chipstore``, ``device_augment``, ``device_augment_noise``) and the
 devices' (``devices``, ``fsdp``, ``fsdp_min_size``: ``train/fit.py``).
+``model_type="UTAE"`` (a model of the port alone, ``models/utae.py``) takes
+``in_time`` and ``hidden_channels``, and the published widths.
 """
 
 import dataclasses
@@ -111,7 +113,14 @@ class CultionetParams:
 
     def get_model_kwargs(self) -> dict:
         """The JAX model's keyword arguments (``in_channels`` is separate:
-        the JAX model infers it from its input, the port's takes it)."""
+        the JAX model infers it from its input, the port's takes it). A
+        U-TAE's are its own (``models/utae.py::UTAE``)."""
+        if self.model_type == ModelTypes.UTAE:
+            return dict(
+                model_type=self.model_type,
+                in_time=self.in_time,
+                hidden_channels=self.hidden_channels,
+            )
         return dict(
             in_time=self.in_time,
             hidden_channels=self.hidden_channels,

@@ -3,8 +3,11 @@
 Tensor layout as in the JAX package: ``x`` is channel-last ``(B, T, H, W,
 C)``; labels and distances are ``(B, H, W)``; geographic bounds, lat/lon
 and prediction-window geometry are ``(B,)``. ``batch_id`` holds the chips'
-file names. Chips are ``.npz`` files with one array per field, the JAX
-package's layout (``Batch.to_file`` / ``Batch.from_file``), so a chip
+file names. A chip of a dated series (U-TAE's) carries ``dates`` (B, T),
+the acquisition days, and ``date_count`` (B,), how many of its T dates
+are real (the first ones; the rest are zero padding). Such chips may
+differ in T: ``collate`` pads them to the batch's longest. Chips are
+``.npz`` files with one array per field, the JAX package's layout (``Batch.to_file`` / ``Batch.from_file``), so a chip
 written by either package reads back identically in the other.
 ``from_file`` also reads the reference framework's joblib ``.pt`` chips
 (``from_reference_file``): its (B, C, T, H, W) dict chips and its v1-era
@@ -147,6 +150,8 @@ class Batch:
     window_width: T.Optional[Tensor] = None
     window_pad_bottom: T.Optional[Tensor] = None
     window_pad_right: T.Optional[Tensor] = None
+    dates: T.Optional[Tensor] = None
+    date_count: T.Optional[Tensor] = None
     batch_id: T.Optional[T.Tuple[str, ...]] = None
 
     _META_KEYS = (
@@ -413,7 +418,11 @@ class Batch:
 
 def collate(batches: T.Sequence[Batch]) -> Batch:
     """Concatenate the chips field by field along the batch axis; the
-    ``batch_id``s join in order."""
+    ``batch_id``s join in order. Dated chips of different T are padded
+    with zeros to the longest (``pad_dates``)."""
+    if batches[0].dates is not None:
+        steps = max(b.num_time for b in batches)
+        batches = [pad_dates(b, steps) for b in batches]
     first = batches[0]
     fields = {}
     for f in dataclasses.fields(first):
@@ -426,3 +435,27 @@ def collate(batches: T.Sequence[Batch]) -> Batch:
         else:
             fields[f.name] = torch.cat([getattr(b, f.name) for b in batches])
     return Batch(**fields)
+
+
+def pad_dates(batch: Batch, steps: int) -> Batch:
+    """A dated batch with ``x`` and ``dates`` zero-padded along T to
+    ``steps`` dates; ``date_count`` keeps the real ones."""
+    extra = steps - batch.num_time
+    if extra < 0:
+        raise ValueError(f"the batch has {batch.num_time} dates, more than {steps}")
+    if extra == 0:
+        return batch
+    x = torch.nn.functional.pad(batch.x, (0, 0, 0, 0, 0, 0, 0, extra))
+    dates = torch.nn.functional.pad(batch.dates, (0, extra))
+    return batch.replace(x=x, dates=dates)
+
+
+def count_date_images(date_count: np.ndarray, steps: int) -> None:
+    """Count a batch's date images, ``utae_date_images`` (chips x T), and
+    the padding among them, ``utae_pad_images`` (``utils/profiling.py``)."""
+    from ..utils.profiling import add_count
+
+    date_count = np.asarray(date_count)
+    total = int(date_count.size) * int(steps)
+    add_count("utae_date_images", total)
+    add_count("utae_pad_images", total - int(date_count.sum()))

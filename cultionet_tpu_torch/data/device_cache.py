@@ -16,7 +16,11 @@ both give the same records.
 - ``hbm_budget_bytes``: the share of device memory the split may take.
 - ``DeviceChipCache``: the resident arrays and the per-epoch shuffled
   index batches (``IndexBatch``), in the JAX package's order.
-- ``gather_batch``: the batch of x, y and bdist rows at the indices.
+- ``gather_batch``: the batch of x, y and bdist rows at the indices (and
+  of ``dates`` and ``date_count`` for dated chips, padded to the split's
+  most dates when the cache is built).
+- ``DeviceChipCache.from_arrays``: a resident split from arrays already
+  made (on the device or the host), without chip files.
 
 Data parallel, as JAX's mesh does it (arrays replicated, indices
 sharded): each rank that ``fit`` launches holds the whole split and
@@ -31,7 +35,7 @@ import torch
 
 from ..utils.device import resolve_device
 from ..utils.profiling import to_device
-from .batch import Batch
+from .batch import Batch, count_date_images, pad_dates
 from .chipstore import quantize
 
 Tensor = torch.Tensor
@@ -95,38 +99,65 @@ class DeviceChipCache:
         drop_remainder: bool = True,
         device: T.Union[str, torch.device] = "cuda",
     ):
+        self._setup(batch_size, seed, drop_remainder, device)
+        chips = [Batch.from_file(f) for f in dataset.files]
+        if chips[0].dates is not None:
+            steps = max(chip.num_time for chip in chips)
+            chips = [pad_dates(chip, steps) for chip in chips]
+
+        def stack(name, pack=lambda a: a.astype(np.int16)):
+            if getattr(chips[0], name) is None:
+                return None
+            return np.stack([pack(getattr(chip, name)[0].numpy()) for chip in chips])
+
+        self._bind({
+            "x": stack("x", quantize),
+            "y": stack("y"),
+            "bdist": stack("bdist", quantize),
+            "dates": stack("dates"),
+            "date_count": stack("date_count"),
+        })
+
+    @classmethod
+    def from_arrays(
+        cls,
+        arrays: T.Mapping[str, T.Any],
+        batch_size: int,
+        seed: int = 42,
+        drop_remainder: bool = True,
+        device: T.Union[str, torch.device] = "cuda",
+    ) -> "DeviceChipCache":
+        """A resident split from packed arrays (numpy or tensors, any
+        device): int16 x (N, T, H, W, C), and y, bdist, dates (N, T) and
+        date_count (N,) where the chips have them."""
+        cache = cls.__new__(cls)
+        cache._setup(batch_size, seed, drop_remainder, device)
+        cache._bind({
+            name: arrays.get(name)
+            for name in ("x", "y", "bdist", "dates", "date_count")
+        })
+        return cache
+
+    def _setup(self, batch_size, seed, drop_remainder, device) -> None:
         self.batch_size = int(batch_size)
         self.seed = int(seed)
         self.drop_remainder = drop_remainder
         self.device = resolve_device(device)
         self._epoch = 0
 
-        xs, ys, bs = [], [], []
-        for f in dataset.files:
-            chip = Batch.from_file(f)
-            xs.append(quantize(chip.x[0].numpy()))
-            ys.append(
-                None if chip.y is None else chip.y[0].numpy().astype(np.int16)
-            )
-            bs.append(
-                None
-                if chip.bdist is None
-                else quantize(chip.bdist[0].numpy())
-            )
-
-        self.num_chips = len(xs)
-        host = {
-            "x": np.stack(xs),
-            "y": np.stack(ys) if ys[0] is not None else None,
-            "bdist": np.stack(bs) if bs[0] is not None else None,
-        }
-        self.resident_bytes = sum(
-            a.nbytes for a in host.values() if a is not None
-        )
+    def _bind(self, arrays: T.Mapping[str, T.Any]) -> None:
+        """Put the packed arrays on the device; a dated split keeps its
+        date counts on the host too, for ``count_date_images``."""
         self.arrays: T.Dict[str, T.Optional[Tensor]] = {
-            name: None if value is None else to_device(torch.from_numpy(value), self.device)
-            for name, value in host.items()
+            name: None if value is None else to_device(torch.as_tensor(value), self.device)
+            for name, value in arrays.items()
         }
+        self.num_chips = int(self.arrays["x"].shape[0])
+        self.resident_bytes = sum(
+            v.numel() * v.element_size() for v in self.arrays.values() if v is not None
+        )
+        count = self.arrays.get("date_count")
+        self.host_date_count = None if count is None else count.cpu().numpy()
 
     @classmethod
     def fits(
@@ -173,8 +204,12 @@ class DeviceChipCache:
         return np.stack(rows) if rows else np.zeros((0, self.batch_size), np.int32)
 
     def __iter__(self) -> T.Iterator[IndexBatch]:
-        table = torch.from_numpy(self._next_epoch_indices().astype(np.int64))
-        for row in to_device(table, self.device):
+        host = self._next_epoch_indices()
+        table = to_device(torch.from_numpy(host.astype(np.int64)), self.device)
+        steps = self.arrays["x"].shape[1]
+        for row, rows in zip(table, host):
+            if self.host_date_count is not None:
+                count_date_images(self.host_date_count[rows], steps)
             yield IndexBatch(row)
 
 
@@ -185,4 +220,7 @@ def gather_batch(arrays: T.Mapping[str, T.Optional[Tensor]], idx: Tensor) -> Bat
         value = arrays.get(name)
         return None if value is None else value.index_select(0, idx)
 
-    return Batch(x=rows("x"), y=rows("y"), bdist=rows("bdist"))
+    return Batch(
+        x=rows("x"), y=rows("y"), bdist=rows("bdist"), dates=rows("dates"),
+        date_count=rows("date_count"),
+    )

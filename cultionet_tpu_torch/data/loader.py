@@ -20,7 +20,7 @@ import typing as T
 import numpy as np
 import torch
 
-from .batch import Batch, collate
+from .batch import Batch, collate, count_date_images
 from .datasets import ChipDataset
 
 _DONE = object()
@@ -105,6 +105,8 @@ class ChipLoader:
 
     def _materialize(self, indices: np.ndarray) -> Batch:
         batch = collate([self.dataset[int(i)] for i in indices])
+        if batch.date_count is not None:
+            count_date_images(batch.date_count.numpy(), batch.num_time)
         if self.device.type == "cuda":
             batch = batch.pin_memory().to(self.device)
         return batch

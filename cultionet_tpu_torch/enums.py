@@ -53,6 +53,7 @@ class InferenceNames(StrEnum):
 
 class LossTypes(StrEnum):
     BOUNDARY = "BoundaryLoss"
+    CROSS_ENTROPY = "CrossEntropyLoss"
     CENTERLINE_DICE = "CLDiceLoss"
     CLASS_BALANCED_MSE = "ClassBalancedMSELoss"
     LOG_COSH = "LogCoshLoss"
@@ -72,6 +73,7 @@ class ModelNames(StrEnum):
 
 class ModelTypes(StrEnum):
     TOWERUNET = "TowerUNet"
+    UTAE = "UTAE"
 
 
 class ResBlockTypes(StrEnum):
@@ -80,6 +82,7 @@ class ResBlockTypes(StrEnum):
 
 
 class LearningRateSchedulers(StrEnum):
+    CONSTANT = "Constant"
     COSINE_ANNEALING_LR = "CosineAnnealingLR"
     EXPONENTIAL_LR = "ExponentialLR"
     ONE_CYCLE_LR = "OneCycleLR"

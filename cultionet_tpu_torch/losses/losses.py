@@ -426,3 +426,31 @@ class FocalTverskyLoss(_Partial):
         smooth: float = 1.0,
     ):
         super().__init__(alpha=alpha, beta=beta, gamma=gamma, smooth=smooth)
+
+
+def class_targets(y: Tensor, num_classes: int, void_class: int) -> Tensor:
+    """Integer labels as cross-entropy targets (int64): a label outside
+    [0, num_classes) (-1, unlabeled) becomes the void class."""
+    y = y.to(torch.int64)
+    return torch.where((y >= 0) & (y < num_classes), y, void_class % num_classes)
+
+
+class CrossEntropyLoss:
+    """Class-weighted cross-entropy of channel-last logits (B, H, W, K)
+    against (B, H, W) labels, the mean over the pixels' weights: every
+    class weighs 1 but ``void_class`` (U-TAE's ``train_semantic.py`` sets
+    ``weights[ignore_index] = 0``, -1 the last class), which weighs 0."""
+
+    def __init__(self, void_class: int = -1):
+        self.void_class = void_class
+
+    def __call__(self, logits: Tensor, y: Tensor) -> Tensor:
+        k = logits.shape[-1]
+        # Made on the device, with no copy from the host (a CUDA graph
+        # captures the loss).
+        classes = torch.arange(k, device=logits.device)
+        weight = (classes != self.void_class % k).to(torch.float32)
+        target = class_targets(y, k, self.void_class)
+        logits = logits.permute(0, 3, 1, 2)
+        logits = logits.to(torch.promote_types(logits.dtype, torch.float32))
+        return F.cross_entropy(logits, target, weight=weight.to(logits.dtype))

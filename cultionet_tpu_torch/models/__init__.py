@@ -1,5 +1,9 @@
-from .cultionet import CultioNet
+from .cultionet import CultioNet, create_model
 from .temporal import PreTimeReduction, TemporalTransformer
 from .tower_unet import TowerUNet
+from .utae import UTAE
 
-__all__ = ["CultioNet", "PreTimeReduction", "TemporalTransformer", "TowerUNet"]
+__all__ = [
+    "CultioNet", "PreTimeReduction", "TemporalTransformer", "TowerUNet", "UTAE",
+    "create_model",
+]

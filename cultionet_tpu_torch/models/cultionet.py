@@ -13,8 +13,18 @@ from torch import nn
 
 from ..enums import AttentionTypes, InferenceNames, ModelTypes, ResBlockTypes
 from .tower_unet import TowerUNet
+from .utae import UTAE
 
 Tensor = torch.Tensor
+
+
+def create_model(in_channels: int, **kwargs) -> nn.Module:
+    """The model of ``kwargs["model_type"]`` (``CultionetParams.
+    get_model_kwargs`` or a checkpoint's hyperparams): a ``UTAE`` for
+    "UTAE", else a ``CultioNet``."""
+    if kwargs.get("model_type") == ModelTypes.UTAE:
+        return UTAE(in_channels=in_channels, **kwargs)
+    return CultioNet(in_channels=in_channels, **kwargs)
 
 
 class CultioNet(nn.Module):
@@ -37,7 +47,10 @@ class CultioNet(nn.Module):
     ):
         super().__init__()
         if model_type != ModelTypes.TOWERUNET:
-            raise ValueError("The model type is not supported.")
+            raise ValueError(
+                f"CultioNet builds {ModelTypes.TOWERUNET}; {model_type!r} builds "
+                "through create_model"
+            )
         self.mask_model = TowerUNet(
             in_channels=in_channels,
             in_time=in_time,

@@ -90,7 +90,7 @@ def init_parameters_(
             lecun_normal_(m.weight, _fan_in(m), generator)
             m.bias.zero_()
         elif isinstance(
-            m, (nn.Conv2d, nn.Conv3d, nn.ConvTranspose2d, nn.Linear)
+            m, (nn.Conv1d, nn.Conv2d, nn.Conv3d, nn.ConvTranspose2d, nn.Linear)
         ):
             kaiming_normal_(m.weight, _fan_in(m), generator)
             if m.bias is not None:

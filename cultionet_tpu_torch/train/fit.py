@@ -32,7 +32,11 @@ z-scores on the device; host augmenters do not run, and validation stays
 on the host loader.
 
 Every model option of the JAX configuration builds
-(``model_from_kwargs``), ``remat`` included.
+(``model_from_kwargs``), ``remat`` included. ``model_type="UTAE"`` trains
+the port's U-TAE (``models/utae.py``) on dated chips under
+``CrossEntropyLoss``; its validation reports the loss, the overall
+accuracy (``voa``) and the mean IoU (``vmiou``) of the split's confusion
+matrix, and ``val_score`` is 1 - mIoU.
 
 Data parallel (``parallel/``). JAX runs ``devices > 1`` as one program
 over a mesh; PyTorch runs one process per device. ``fit`` with
@@ -70,7 +74,8 @@ from ..config import CultionetParams
 from ..data.chipstore import ChipstoreLoader
 from ..data.device_cache import DeviceChipCache, gather_batch
 from ..data.loader import ChipLoader, process_local_selection
-from ..models import CultioNet
+from ..enums import LossTypes, ModelTypes
+from ..models import CultioNet, create_model
 from ..nn.dropout import dropout_rng
 from ..parallel.distributed import assert_same_across_hosts, launch
 from ..parallel.mesh import (
@@ -91,6 +96,7 @@ from .lr_finder import lr_find
 from .optim import build_momentum_schedule, build_optimizer, build_schedule
 from .precision import cast_floating, resolve_dtype
 from .prune import l1_unstructured_prune
+from .metrics import class_scores
 from .step import (
     TrainState,
     class_weights_from_counts,
@@ -118,14 +124,14 @@ class FitResult:
     steps_per_epoch: int = 0
 
 
-def model_from_kwargs(in_channels: int, kwargs: T.Mapping) -> CultioNet:
-    """The port's CultioNet from the JAX model's keyword arguments
-    (``CultionetParams.get_model_kwargs`` or a checkpoint's
-    hyperparams)."""
-    return CultioNet(in_channels=in_channels, **kwargs)
+def model_from_kwargs(in_channels: int, kwargs: T.Mapping) -> torch.nn.Module:
+    """The port's model from the model's keyword arguments
+    (``CultionetParams.get_model_kwargs`` or a checkpoint's hyperparams):
+    a CultioNet, or a U-TAE for ``model_type="UTAE"``."""
+    return create_model(in_channels, **kwargs)
 
 
-def build_model(params: CultionetParams) -> CultioNet:
+def build_model(params: CultionetParams) -> torch.nn.Module:
     return model_from_kwargs(params.in_channels, params.get_model_kwargs())
 
 
@@ -165,12 +171,19 @@ def _append_batch_metrics(
 def _mean_metrics(
     rows: T.List[T.Tuple[int, T.Dict[str, torch.Tensor]]]
 ) -> T.Dict[str, float]:
-    """Batch-size weighted mean of metric dicts, in the JAX order."""
+    """Batch-size weighted mean of metric dicts, in the JAX order; a
+    ``confusion`` matrix (the class-logit objective's) is summed instead,
+    and gives the overall accuracy ``oa`` and mean IoU ``miou``."""
     total = sum(n for n, _ in rows)
-    return {
+    out = {
         key: float(sum(n * float(m[key]) for n, m in rows) / max(total, 1))
         for key in rows[0][1]
+        if key != "confusion"
     }
+    if "confusion" in rows[0][1]:
+        oa, miou = class_scores(sum(m["confusion"] for _, m in rows))
+        out.update(oa=float(oa), miou=float(miou), score=1.0 - float(miou))
+    return out
 
 
 def _is_final(name: str) -> bool:
@@ -395,6 +408,14 @@ def fit(
     for ``device="cpu"``) and returns rank 0's result.
     """
     device = resolve_device(device)
+    if params.model_type == ModelTypes.UTAE:
+        if params.loss_name != LossTypes.CROSS_ENTROPY:
+            raise ValueError(
+                f"a U-TAE trains under loss_name={LossTypes.CROSS_ENTROPY!r}, "
+                f"not {params.loss_name!r}"
+            )
+        if params.devices > 1 or params.auto_lr_find:
+            raise ValueError("a U-TAE trains on one device, without the LR sweep")
     params.check_checkpoint()
 
     dataset = params.dataset
@@ -719,7 +740,10 @@ def _fit_rank(
                             "epoch": epoch,
                             "batch": batch_idx,
                             "num_samples": batch.num_samples,
-                            **{k: float(v) for k, v in val_rows[-1][1].items()},
+                            **{
+                                k: float(v) for k, v in val_rows[-1][1].items()
+                                if v.dim() == 0
+                            },
                         }
                     )
         if batch_metric_rows and lead:
@@ -729,14 +753,21 @@ def _fit_rank(
 
         train_metrics = _mean_metrics(train_rows)
         val_metrics = _mean_metrics(val_rows)
+        scores = (
+            {"voa": val_metrics["oa"], "vmiou": val_metrics["miou"]}
+            if "miou" in val_metrics
+            else {
+                "vef1": val_metrics["edge_f1"],
+                "vcf1": val_metrics["crop_f1"],
+                "vmae": val_metrics["dist_mae"],
+            }
+        )
         row = {
             "epoch": epoch,
             "loss": train_metrics["loss"],
             "val_loss": val_metrics["loss"],
             "val_score": val_metrics["score"],
-            "vef1": val_metrics["edge_f1"],
-            "vcf1": val_metrics["crop_f1"],
-            "vmae": val_metrics["dist_mae"],
+            **scores,
             "lr_sch": float(
                 lr_schedule(
                     (epoch + 1)

@@ -8,6 +8,7 @@ from ..losses import (
     BoundaryLoss,
     ClassBalancedMSELoss,
     CombinedLoss,
+    CrossEntropyLoss,
     FocalTverskyLoss,
     LogCoshLoss,
     TanimotoComplementLoss,
@@ -20,6 +21,9 @@ def build_loss_dict() -> T.Dict[str, T.Dict[str, T.Callable]]:
     return {
         LossTypes.BOUNDARY: {
             "classification": BoundaryLoss(),
+        },
+        LossTypes.CROSS_ENTROPY: {
+            "classification": CrossEntropyLoss(),
         },
         LossTypes.CLASS_BALANCED_MSE: {
             "classification": ClassBalancedMSELoss(),

@@ -1,6 +1,7 @@
 """Evaluation metrics (port of cultionet_tpu/train/metrics.py): MAE, MSE,
 macro F-beta, Matthews correlation, Dice and IoU, each with an optional
-validity mask (invalid pixels get zero weight)."""
+validity mask (invalid pixels get zero weight); and, for class maps, the
+overall accuracy and mean IoU of a confusion matrix (``class_scores``)."""
 
 import typing as T
 
@@ -121,3 +122,20 @@ def jaccard_score(
     t = targets.to(torch.float32) * w
     inter = (p * t).sum()
     return (inter + smooth) / (p.sum() + t.sum() - inter + smooth)
+
+
+def class_scores(cm: Tensor, void_class: int = -1) -> T.Tuple[Tensor, Tensor]:
+    """Overall accuracy and mean IoU of a (K, K) confusion matrix (rows
+    the true class), as U-TAE's ``IoU.get_miou_acc`` computes them: the
+    void class's row and column dropped, the IoU of each class that
+    occurs in the targets or the predictions, averaged."""
+    k = cm.shape[0]
+    keep = torch.ones(k, dtype=torch.bool, device=cm.device)
+    keep[void_class] = False
+    cm = cm.float() * keep[:, None] * keep[None, :]
+    tp = cm.diagonal()
+    union = cm.sum(0) + cm.sum(1) - tp
+    present = union > 0
+    iou = tp / union.clamp_min(1.0)
+    miou = (iou * present).sum() / present.sum().clamp_min(1)
+    return tp.sum() / cm.sum().clamp_min(1.0), miou

@@ -79,6 +79,10 @@ def build_schedule(
 ) -> Schedule:
     total_steps = max(1, epochs * steps_per_epoch)
 
+    if name == LearningRateSchedulers.CONSTANT:
+        # U-TAE's published run: no scheduler.
+        return lambda step: learning_rate
+
     if name == LearningRateSchedulers.ONE_CYCLE_LR:
         # torch OneCycleLR defaults (pct_start 0.3, div_factor 25,
         # final_div_factor 1e4, cosine), with the JAX package's minimum

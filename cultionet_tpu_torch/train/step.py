@@ -14,7 +14,10 @@ and update the state in place:
   ``generator``.
 - ``make_hbm_train_step``: the same step over a device-resident split
   (``data/device_cache.py``), from a (B,) index vector.
-- ``make_eval_step``: the loss, the metric suite and the composite score.
+- ``make_eval_step``: the loss, the metric suite and the composite score
+  (for class logits under ``CrossEntropyLoss``, U-TAE's objective: the
+  loss and the confusion matrix, whose overall accuracy and mean IoU
+  ``fit`` reports over the validation split).
 - ``make_predict_step``: the model's outputs for a batch of windows.
 """
 
@@ -39,7 +42,15 @@ from ..utils.profiling import span, to_device
 from .graphed import GraphedStep
 from .labels import get_true_labels
 from .loss_registry import LOSS_DICT
-from .metrics import fbeta_score, mae, matthews_corrcoef, mse, probas_to_labels
+from ..losses import class_targets
+from .metrics import (
+    confusion_counts,
+    fbeta_score,
+    mae,
+    matthews_corrcoef,
+    mse,
+    probas_to_labels,
+)
 from .optim import Optimizer, OptimizerSpec
 from .precision import cast_floating, resolve_dtype
 
@@ -101,7 +112,10 @@ def calc_loss(
     edge_class: int = 2,
     class_weights: T.Optional[T.Dict[str, T.Any]] = None,
 ) -> T.Tuple[Tensor, T.Dict[str, Tensor]]:
-    """Multi-task loss: distance + edge + crop, equally weighted.
+    """Multi-task loss: distance + edge + crop, equally weighted; under
+    ``CrossEntropyLoss`` the class-logit objective alone
+    (``losses.CrossEntropyLoss``: the ``crop_type`` logits against ``y``,
+    the void class weighing 0).
 
     ``class_weights`` (from ``class_weights_from_counts``) weights the
     classification pixels by class: the set losses multiply inputs and
@@ -109,6 +123,8 @@ def calc_loss(
     weighted sums.
     """
     losses = LOSS_DICT[loss_name]
+    if loss_name == LossTypes.CROSS_ENTROPY:
+        return losses["classification"](predictions[InferenceNames.CROP_TYPE], batch.y), {}
     combined = LOSS_DICT[LossTypes.TANIMOTO_COMBINED]
     reg_loss = losses.get("regression") or combined["regression"]
     cls_loss = losses.get("classification") or combined["classification"]
@@ -153,11 +169,15 @@ def _check_generator(generator: torch.Generator, device: torch.device):
 
 def model_inputs(
     batch: Batch, compute_dtype: torch.dtype
-) -> T.Tuple[Tensor, T.Optional[Tensor], T.Optional[Tensor]]:
+) -> T.Tuple[T.Optional[Tensor], ...]:
     """The model's positional inputs from a batch: ``x`` in the compute
     type and the chips' ``lat`` and ``lon`` as they are (the JAX steps
-    cast only ``x``)."""
-    return batch.x.to(compute_dtype), batch.lat, batch.lon
+    cast only ``x``); a batch with acquisition dates adds ``dates`` and
+    ``date_count`` (U-TAE's)."""
+    inputs = (batch.x.to(compute_dtype), batch.lat, batch.lon)
+    if batch.dates is None:
+        return inputs
+    return inputs + (batch.dates, batch.date_count)
 
 
 def forward_loss(
@@ -344,7 +364,17 @@ def evaluate_predictions(
     edge_class: int = 2,
     class_weights: T.Optional[T.Dict[str, T.Any]] = None,
 ) -> T.Dict[str, Tensor]:
-    """Loss, metric suite and composite score ``score``."""
+    """Loss, metric suite and composite score ``score``; under
+    ``CrossEntropyLoss`` the loss and ``confusion``, the (K, K) confusion
+    matrix of the predicted classes (rows the true class)."""
+    if loss_name == LossTypes.CROSS_ENTROPY:
+        logits = predictions[InferenceNames.CROP_TYPE]
+        k = logits.shape[-1]
+        loss, _ = calc_loss(predictions, batch, loss_name=loss_name)
+        confusion = confusion_counts(
+            logits.argmax(-1), class_targets(batch.y, k, -1), num_classes=k
+        )
+        return {"loss": loss, "confusion": confusion}
     loss, report = calc_loss(
         predictions,
         batch,

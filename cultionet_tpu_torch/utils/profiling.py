@@ -20,6 +20,9 @@ cultionet_tpu/utils/profiling.py::profile_trace, on ``torch.profiler``).
   the stream), always on; ``to_device`` and ``to_host`` copy and count.
   ``graph_captures`` and ``graph_replays`` count the train step's CUDA
   graph captures and replays (``train/graphed.py``, ``add_count``).
+  ``utae_date_images`` and ``utae_pad_images`` count the date images of
+  the dated batches the loaders deliver and the padding among them
+  (``data/batch.py::count_date_images``).
   ``counters()`` adds the kernel launch counters (``ops/*_cuda.py``).
 - ``profile_trace(dir)``: profiles a block, writes the Chrome trace
   (``trace.json``) and the spans' totals with the card's idle time under
@@ -41,6 +44,7 @@ MAX_RECORDS = 200_000
 COUNTS: T.Dict[str, int] = {
     "h2d_bytes": 0, "d2h_bytes": 0, "blocking_copies": 0,
     "graph_captures": 0, "graph_replays": 0,
+    "utae_date_images": 0, "utae_pad_images": 0,
 }
 
 _autograd_profiler = torch.autograd.profiler

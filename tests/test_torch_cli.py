@@ -3,8 +3,10 @@
 (``main(argv, device="cpu")``).
 
 - The argument spec ``scripts/args.json`` equals ``yaml.safe_load`` of the
-  JAX ``args.yml`` but for help texts, and each subcommand's parser has the
-  JAX parser's flags, dests, defaults, types, choices, nargs and consts.
+  JAX ``args.yml`` but for help texts and the port's own choices
+  (``PORT_CHOICES``: the U-TAE model type and its constant learning rate),
+  and each subcommand's parser has the JAX parser's flags, dests, defaults,
+  types, choices (with the same additions), nargs and consts.
 - ``_build_params`` gives the JAX ``CultionetParams`` field for field.
 - On ``tests/test_cli.py::make_project``'s layout, ``create`` and
   ``create-predict`` write the JAX CLI's files with equal arrays (cv2 on
@@ -76,6 +78,18 @@ def run_jax_cli(argv):
         jax_cli.main()
 
 
+# Choices of the port alone (a model the JAX package lacks, and the
+# constant learning rate it trains with), by dest.
+PORT_CHOICES = {"model_type": ["UTAE"], "lr_scheduler": ["Constant"]}
+
+
+def _with_port_choices(dest, choices):
+    """JAX's choices of ``dest`` with the port's own, in the port's order."""
+    if choices is None or dest not in PORT_CHOICES:
+        return choices
+    return sorted([*choices, *PORT_CHOICES[dest]])
+
+
 def test_args_spec_equals_jax_yaml():
     port = json.loads(cli.ARGS_SPEC.read_text())
     jax = yaml.safe_load(jax_cli.ARGS_SPEC.read_text())
@@ -86,13 +100,17 @@ def test_args_spec_equals_jax_yaml():
             got = port[group][dest]
             assert got["flags"] == arg["flags"], dest
             strip = lambda kw: {k: v for k, v in kw.items() if k != "help"}  # noqa: E731
-            assert strip(got["kwargs"]) == strip(arg["kwargs"]), dest
+            want = strip(arg["kwargs"])
+            if "choices" in want:
+                want["choices"] = _with_port_choices(dest, want["choices"])
+            assert strip(got["kwargs"]) == want, dest
 
 
-def _actions(parser, command):
+def _actions(parser, command, port=False):
     sub = parser._subparsers._group_actions[0].choices[command]
     return [
-        (a.dest, tuple(a.option_strings), a.default, a.type, a.choices,
+        (a.dest, tuple(a.option_strings), a.default, a.type,
+         _with_port_choices(a.dest, a.choices) if port else a.choices,
          a.nargs, a.const, a.required)
         for a in sub._actions
         if a.dest != "help"
@@ -102,7 +120,7 @@ def _actions(parser, command):
 @pytest.mark.parametrize("command", [str(c) for c in cli.SUBCOMMAND_GROUPS])
 def test_parser_matches_jax(command):
     assert _actions(cli.build_parser(), command) == _actions(
-        jax_cli.build_parser(), command
+        jax_cli.build_parser(), command, port=True
     )
 
 

@@ -35,7 +35,12 @@ from cultionet_tpu_torch.data.device_cache import DeviceChipCache
 
 joblib = pytest.importorskip("joblib")
 
-FIELDS = [f.name for f in dataclasses.fields(Batch) if f.name != "batch_id"]
+# The JAX Batch's fields: the port's dated-series fields (U-TAE's
+# ``dates`` and ``date_count``) have no JAX counterpart.
+FIELDS = [
+    f.name for f in dataclasses.fields(Batch)
+    if f.name not in ("batch_id", "dates", "date_count")
+]
 
 
 def assert_same(got: Batch, want: JaxBatch, fields=FIELDS) -> None:
