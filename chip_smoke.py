@@ -39,6 +39,15 @@ on the first phase that fails:
    kernels; two backward launches give equal bits; the tile plan of each
    launch; times beside the bound, the plain version's and torch's
    scaled_dot_product_attention's (the yardstick).
+   kernel_check layer_norm_rows: the LayerNorm kernel
+   (``ops/layer_norm_cuda.py``, no TPU counterpart) against
+   ``F.layer_norm`` on the same inputs at the transformer's predict calls
+   (156,800 x 12 x 64 five times a forward, 156,800 x 64, 1 x 1 x 64), a
+   ragged row count and widths 24, 256 and 1024, 36 and 4 (8-byte loads in
+   bf16), 5 (scalar loads) (fp32 <= 1e-5; bf16 within one bf16 ulp of the
+   output's largest magnitude); the launch plan the library chose;
+   device times beside the byte bound and ``F.layer_norm``'s (the plain
+   version and the yardstick: one call computes the same function).
 7. kernel_check na_block_fwd: the fused NA block kernel (#7, one launch
    over coset tiles) against its plain version
    (``ops/na_block.py::na_block_plain``) at the decoder's three NA sites
@@ -68,18 +77,22 @@ on the first phase that fails:
 10. predict / predict_transformer (main paths): ScenePredictor.predict_scene
     at bf16 on a seeded int16 scene (T=12, 420x420, C=3, window 100,
     padding 20: 25 windows in 4 batches of 8): 12 launches of na2d_fwd
-    (and of temporal_fwd for the transformer), no others.
+    (and of temporal_fwd for the transformer), no others; 28 launches of
+    the LayerNorm kernel for the transformer (7 a batch), none for the conv.
 11. forward_profile(_transformer): device time by kernel for one bf16
-    window batch; with the transformer also layernorm_bounds: PyTorch's
-    LayerNorm calls by input shape (record_shapes), dtype and contiguity,
-    their device time beside a byte bound (rows x C read and written once).
+    window batch; with the transformer also layernorm_bounds: the
+    LayerNorm calls (PyTorch's ``aten::layer_norm`` and the port's
+    ``cultionet_tpu_torch::layer_norm_rows``) by input shape
+    (record_shapes), dtype and contiguity, their device time beside a byte
+    bound (rows x C read and written once).
 12. train / train_transformer (main paths): the CLI-default train step
     (hidden 64, dropout 0.2, TanimotoComplementLoss, AdamW + OneCycle +
     global-norm clip 1.0, "16-mixed") on one fixed seeded batch of 4
     chips of 100x100, T=12, 3 bands: 3 warm-up steps, then 20 timed steps.
     Every loss finite, the last below the first, exactly 3 launches of
     na2d_fwd_drop and of na2d_bwd_drop per step (and 3 of temporal_fwd
-    and temporal_bwd for the transformer) and no others.
+    and temporal_bwd for the transformer) and no others: no LayerNorm
+    kernel under a gradient.
 13. train_parity(_transformer) (dropout 0): one fp32 step launches
     na2d_fwd and na2d_bwd 3 times each (and the temporal kernels 3 times
     each for the transformer); its loss and gradients with the kernels
@@ -126,8 +139,8 @@ on the first phase that fails:
     8 of 140-px windows, in bf16 and fp32; a fresh process loads the four
     artifacts with ``load_predictor`` alone (no module of the port's
     ``models`` or ``nn`` imported), each call launching 3 na2d_fwd (and 3
-    temporal_fwd with the transformer) and nothing else, its graph naming
-    the registered ops; its rasters on a seeded int16 batch equal to the
+    temporal_fwd and 7 layer_norm_rows with the transformer) and nothing
+    else, its graph naming the registered ops as often; its rasters on a seeded int16 batch equal to the
     in-process predict step's within 1e-5 (fp32) and 2e-2 (bf16), both
     with cuDNN's deterministic algorithms (with its defaults two calls of
     the fp32 step differ by up to about 1e-5, recorded). Served chips/s of
@@ -411,9 +424,15 @@ def na_bwd_bound_ms(shape, itemsize: int):
 
 
 def _launch_counters() -> list:
-    from cultionet_tpu_torch.ops import na_block_cuda, natten_cuda, temporal_cuda
+    from cultionet_tpu_torch.ops import (
+        layer_norm_cuda,
+        na_block_cuda,
+        natten_cuda,
+        temporal_cuda,
+    )
 
-    return [natten_cuda.LAUNCHES, temporal_cuda.LAUNCHES, na_block_cuda.LAUNCHES]
+    return [natten_cuda.LAUNCHES, temporal_cuda.LAUNCHES,
+            na_block_cuda.LAUNCHES, layer_norm_cuda.LAUNCHES]
 
 
 def zero_launches() -> None:
@@ -533,6 +552,7 @@ def ptxas_report(log: str) -> list:
 def phase_build() -> None:
     from cultionet_tpu_torch.ops import (  # noqa: F401
         build,
+        layer_norm_cuda,
         na_block_cuda,
         natten_cuda,
         temporal_cuda,
@@ -666,11 +686,14 @@ def plain_switch(temporal_encoder: str):
 
 
 def forward_launches(temporal_encoder: str) -> dict:
-    """Kernel launches of one eval forward."""
+    """Kernel launches of one eval forward; the transformer's LayerNorm
+    kernel seven times (two a layer, the pooling keys and query, the
+    embedding)."""
     want = {name: 0 for name in read_launches()}
     want["na2d_fwd"] = 3
     if temporal_encoder == "transformer":
         want["temporal_fwd"] = 3
+        want["layer_norm_rows"] = 7
     return want
 
 
@@ -782,11 +805,16 @@ def device_time_by_kernel(prof, count: int):
     ]
 
 
+LAYERNORM_OPS = ("aten::layer_norm", "cultionet_tpu_torch::layer_norm_rows")
+
+
 def layernorm_bounds(run, x) -> None:
-    """PyTorch's LayerNorm in one forward of ``run``: per input shape (the
-    profiler's ``record_shapes``), its calls, device time and byte bound
-    (rows x C read and written once in the input's dtype over the HBM
-    rate), with the dtype and contiguity a forward pre-hook saw."""
+    """The LayerNorm calls in one forward of ``run`` (PyTorch's and the
+    port's op, ``LAYERNORM_OPS``): per op and input shape (the profiler's
+    ``record_shapes``), its calls, device time and byte bound (rows x C
+    read and written once in the input's dtype over the HBM rate), with
+    the dtype and contiguity a forward pre-hook saw on ``nn.LayerNorm``
+    modules (the port's op takes the model's dtype, contiguous rows)."""
     import math
 
     from torch.profiler import ProfilerActivity, profile
@@ -812,17 +840,22 @@ def layernorm_bounds(run, x) -> None:
     finally:
         for h in hooks:
             h.remove()
+    model_dtype = (str(x.dtype).replace("torch.", ""), True, x.element_size())
     rows = []
     for e in prof.key_averages(group_by_input_shape=True):
-        if e.key != "aten::layer_norm" or not e.input_shapes:
+        if e.key not in LAYERNORM_OPS or not e.input_shapes:
             continue
         shape = tuple(e.input_shapes[0])
-        dtype, contiguous, itemsize = seen.get(shape, ("unknown", None, 2))
+        if e.key == LAYERNORM_OPS[0]:
+            dtype, contiguous, itemsize = seen.get(shape, ("unknown", None, 2))
+        else:
+            dtype, contiguous, itemsize = model_dtype
         per_call = math.prod(shape) * itemsize * 2 / HBM_BYTES_PER_S * 1e3
         ms = e.device_time_total / 1e3
         rows.append({
-            "shape": list(shape), "dtype": dtype, "contiguous": contiguous,
-            "calls": e.count, "device_ms": ms, "bound_ms": per_call * e.count,
+            "op": e.key, "shape": list(shape), "dtype": dtype,
+            "contiguous": contiguous, "calls": e.count, "device_ms": ms,
+            "bound_ms": per_call * e.count,
         })
     emit({
         "phase": "layernorm_bounds",
@@ -1317,6 +1350,95 @@ NA_BLOCK_TRAIN_SITES = [  # the same sites on 100-px training chips, B=4
     (4, 100, 100, 256, 4, 3, 2),
 ]
 BF16_OPS_PER_S = 989e12  # H100 SXM dense bf16 tensor-core peak (700 W)
+
+
+LAYER_NORM_ROWS = [  # (call, shape, calls a predict forward): the transformer's
+    ("tokens", (156_800, 12, 64), 5),  # the four pre-LN blocks, the pooling keys
+    ("embedding", (156_800, 64), 1),
+    ("pool_query", (1, 1, 64), 1),
+]
+LAYER_NORM_EXTRA = [  # a ragged row count, narrow and wide rows
+    ("ragged", (100_003, 64), 0),
+    ("width_24", (9_999, 24), 0),
+    ("width_256", (40_000, 256), 0),
+    ("width_1024", (3_001, 1024), 0),
+    ("width_36", (50_001, 36), 0),
+    ("width_4", (20_000, 4), 0),
+    ("width_5", (20_000, 5), 0),
+]
+
+
+def layer_norm_tolerance(want, dtype) -> float:
+    """fp32: 1e-5; bf16: one bf16 ulp at the output's largest magnitude
+    (the kernel and PyTorch sum in another order, and each rounds once)."""
+    import math
+
+    if dtype == torch.float32:
+        return 1e-5
+    scale = want.float().abs().max().item()
+    return 2.0 ** (math.floor(math.log2(scale)) - 7) if scale > 0 else 0.0
+
+
+def phase_layer_norm() -> dict:
+    """The LayerNorm kernel against ``F.layer_norm`` (its plain version
+    and the yardstick) at the transformer's predict calls and the extras;
+    device times at the predict calls."""
+    import torch.nn.functional as F
+
+    from cultionet_tpu_torch.ops import layer_norm_cuda
+
+    gen = torch.Generator(device="cuda").manual_seed(11)
+    records = []
+    for call, shape, calls in LAYER_NORM_ROWS + LAYER_NORM_EXTRA:
+        width = shape[-1]
+        for dtype in (torch.float32, torch.bfloat16):
+            x = (torch.randn(shape, device="cuda", generator=gen) * 2 + 0.5).to(dtype)
+            w = (1 + 0.2 * torch.randn(width, device="cuda", generator=gen)).to(dtype)
+            b = (0.2 * torch.randn(width, device="cuda", generator=gen)).to(dtype)
+            out = layer_norm_cuda.launch_layer_norm_rows(x, w, b, 1e-5)
+            want = F.layer_norm(x, (width,), w, b, 1e-5)
+            err = (out.float() - want.float()).abs().max().item()
+            tol = layer_norm_tolerance(want, dtype)
+            rows = x.numel() // width
+            record = {
+                "phase": "kernel_check",
+                "kernel": "layer_norm_rows",
+                "call": call,
+                "shape": list(shape),
+                "dtype": str(dtype).replace("torch.", ""),
+                "max_abs_err": err,
+                "tol": tol,
+                "plan": layer_norm_cuda.card_plan(dtype, rows, width, x.device),
+            }
+            require(bool(torch.isfinite(out).all()), f"non-finite {record}")
+            require(err <= tol, f"kernel disagrees with F.layer_norm: {record}")
+            if calls:
+                record["calls_a_forward"] = calls
+                record["ms"] = device_ms(
+                    lambda: layer_norm_cuda.launch_layer_norm_rows(x, w, b, 1e-5)
+                )
+                record["library_ms"] = device_ms(
+                    lambda: F.layer_norm(x, (width,), w, b, 1e-5)
+                )
+                record["plain_ms"] = record["library_ms"]
+                record["bound_ms"] = (
+                    2 * x.numel() * x.element_size() / HBM_BYTES_PER_S * 1e3
+                )
+                record["bound_by"] = "bytes"
+                record["share_of_bound"] = record["bound_ms"] / record["ms"]
+            emit(record)
+            records.append(record)
+            del x, w, b, out, want
+    torch.cuda.empty_cache()
+    timed = [r for r in records if "ms" in r and r["dtype"] == "bfloat16"]
+    summary = {
+        "max_abs_err": max(r["max_abs_err"] for r in records if r["dtype"] == "bfloat16"),
+        "bound_by": "bytes",
+    }
+    for key in ("ms", "plain_ms", "library_ms", "bound_ms"):
+        summary[key] = sum(r[key] * r["calls_a_forward"] for r in timed)
+    emit({"phase": "layer_norm_forward", "dtype": "bfloat16", **summary})
+    return summary
 
 
 def na_block_params_on_card(channels: int, generator):
@@ -2177,7 +2299,7 @@ SERVE_SCRIPT = """
 import json, sys, time
 import numpy as np, torch
 from cultionet_tpu_torch.export import load_predictor
-from cultionet_tpu_torch.ops import natten_cuda, temporal_cuda
+from cultionet_tpu_torch.ops import layer_norm_cuda, natten_cuda, temporal_cuda
 
 # fp32 arithmetic in fp32 programs, as in the parent process.
 torch.backends.cuda.matmul.allow_tf32 = False
@@ -2186,7 +2308,8 @@ args = json.loads(sys.argv[1])
 x = torch.from_numpy(np.load(args["wire"])).cuda()
 lat = torch.zeros(x.shape[0], device="cuda")
 lon = torch.zeros(x.shape[0], device="cuda")
-counters = (natten_cuda.LAUNCHES, temporal_cuda.LAUNCHES)
+counters = (natten_cuda.LAUNCHES, temporal_cuda.LAUNCHES,
+            layer_norm_cuda.LAUNCHES)
 report, rasters = {}, {}
 for name, path in args["artifacts"].items():
     start = time.perf_counter()
@@ -2218,6 +2341,8 @@ for name, path in args["artifacts"].items():
         "graph_calls_na2d": code.count("cultionet_tpu_torch.na2d"),
         "graph_calls_temporal": code.count(
             "cultionet_tpu_torch.temporal_attention"),
+        "graph_calls_layer_norm": code.count(
+            "cultionet_tpu_torch.layer_norm_rows"),
         "kernels": pred.meta["kernels"],
     }
     for band, value in zip(pred.meta["outputs"], out):
@@ -2274,8 +2399,9 @@ def phase_export(fit_result: dict, workdir) -> None:
     statistics. A fresh process loads the four artifacts with
     ``load_predictor`` alone and must not import the port's model code
     (``cultionet_tpu_torch.models``, ``.nn``); per call it must launch 3
-    na2d_fwd (conv) or 3 na2d_fwd and 3 temporal_fwd (transformer) and
-    nothing else, and its graph must name the registered ops. Its rasters
+    na2d_fwd (conv) or 3 na2d_fwd, 3 temporal_fwd and 7 layer_norm_rows
+    (transformer) and nothing else, and its graph must name the registered
+    ops as many times. Its rasters
     on a seeded int16 batch must be within 1e-5 (fp32) and 2e-2 (bf16) of
     the in-process predict step's on the same batch, both computed with
     cuDNN's deterministic algorithms: with its defaults two calls of the
@@ -2350,11 +2476,14 @@ def phase_export(fit_result: dict, workdir) -> None:
         want = {"na2d_fwd": 3}
         if front == "transformer":
             want["temporal_fwd"] = 3
+            want["layer_norm_rows"] = 7
         if report["launches_per_call"] != want:
             failures.append(f"{name}: a call launched {report['launches_per_call']}")
         if (
             report["graph_calls_na2d"] != 3
             or report["graph_calls_temporal"] != want.get("temporal_fwd", 0)
+            or report["graph_calls_layer_norm"]
+            != want.get("layer_norm_rows", 0)
             or report["kernels"] != "cuda"
         ):
             failures.append(f"{name}: graph {report}")
@@ -4724,6 +4853,7 @@ def main() -> int:
     bwd = phase_bwd()
     temporal_fwd = phase_temporal_fwd()
     temporal_bwd = phase_temporal_bwd()
+    layer_norm = phase_layer_norm()
     na_block = phase_na_block_fwd()
     na_block_launches = phase_na_block_grad()
 
@@ -4799,6 +4929,12 @@ def main() -> int:
                     "cultionet_tpu_torch/ops/csrc/temporal_bwd.cu",
                     f"{temporal_pallas}:150",
                     train_t_launches["temporal_bwd"], temporal_bwd,
+                ),
+                kernel_entry(
+                    "layer_norm_rows",
+                    "cultionet_tpu_torch/ops/csrc/layer_norm_fwd.cu",
+                    "none (XLA fuses LayerNorm on the TPU)",
+                    predict_t_launches["layer_norm_rows"], layer_norm,
                 ),
                 kernel_entry(
                     "na_block_fwd",

@@ -12,11 +12,13 @@ forward -> the three heads in fp32 — is traced ONCE with
   norm sidecar;
 * the input contract is the wire format (int16 x 10000 chips) plus the
   (B,) chip-centroid lat/lon vectors;
-* neighborhood and temporal attention stay in the program as the
-  registered ops ``cultionet_tpu_torch::na2d`` and
-  ``cultionet_tpu_torch::temporal_attention``
+* neighborhood and temporal attention, and the transformer front end's
+  LayerNorms, stay in the program as the registered ops
+  ``cultionet_tpu_torch::na2d``, ``cultionet_tpu_torch::temporal_attention``
+  and ``cultionet_tpu_torch::layer_norm_rows``
   (``ops/natten.py::na2d_inference``, ``ops/temporal.py::
-  temporal_inference``): an artifact exported on the card launches the
+  temporal_inference``, ``ops/layer_norm.py::layer_norm_inference``): an
+  artifact exported on the card launches the
   hand-written kernels, one exported on the CPU computes their plain
   versions. ``torch.export`` bakes the device into the program, so export
   on the device that serves. There is no kernel-free fallback: an op that
@@ -43,6 +45,7 @@ from torch import nn
 from .data.batch import dequantize
 from .data.constant import SCALE_FACTOR
 from .enums import InferenceNames
+from .ops import layer_norm as _layer_norm_ops  # noqa: F401  (the LayerNorm op)
 from .ops import natten as _natten_ops  # noqa: F401  (registers the NA op)
 from .ops import temporal as _temporal_ops  # noqa: F401  (the temporal op)
 from .ops.flags import cuda_natten_enabled, cuda_temporal_enabled

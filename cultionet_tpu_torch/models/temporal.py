@@ -8,7 +8,9 @@ cultionet_tpu/models/temporal.py).
 - ``TemporalTransformer`` (``temporal_encoder="transformer"``): the math of
   the JAX module's unpacked path, on pixel-major tokens (B*H*W, T, D); its
   attention runs through ``ops/temporal.py::temporal_attention`` (the CUDA
-  kernels on the card). The TPU's lane-packed layout does not carry over.
+  kernels on the card), its LayerNorms through
+  ``ops/layer_norm.py::layer_norm_rows`` (the LayerNorm kernel where no
+  gradient is needed). The TPU's lane-packed layout does not carry over.
 """
 
 import numpy as np
@@ -20,6 +22,7 @@ from ..nn.activations import get_activation
 from ..nn.blocks import BatchNorm, channels_first, channels_last
 from ..nn.dropout import Dropout
 from ..nn.init import LecunLinear
+from ..ops.layer_norm import layer_norm_rows
 from ..ops.temporal import temporal_attention
 
 Tensor = torch.Tensor
@@ -191,8 +194,9 @@ class TemporalTransformer(nn.Module):
         def dense(i: int) -> nn.Module:
             return getattr(self, f"Dense_{i}")
 
-        def norm(i: int) -> nn.Module:
-            return getattr(self, f"LayerNorm_{i}")
+        def norm(i: int, t: Tensor) -> Tensor:
+            m = getattr(self, f"LayerNorm_{i}")
+            return layer_norm_rows(t, m.weight, m.bias, m.eps)
 
         # Pixel-major tokens: one pixel's (T, C) rows are contiguous.
         x = x.permute(0, 2, 3, 1, 4).reshape(-1, time, channels)
@@ -201,27 +205,27 @@ class TemporalTransformer(nn.Module):
         tokens = dense(0)(x) + self.position_table.to(x.dtype)
 
         for layer in range(self.num_layers):
-            qkv = dense(4 * layer + 1)(norm(2 * layer)(tokens))
+            qkv = dense(4 * layer + 1)(norm(2 * layer, tokens))
             q, k, v = qkv.chunk(3, dim=-1)
             attn = dense(4 * layer + 2)(
                 temporal_attention(q, k, v, self.num_heads)
             )
             tokens = tokens + self.dropout(attn)
-            mlp = self.act(dense(4 * layer + 3)(norm(2 * layer + 1)(tokens)))
+            mlp = self.act(dense(4 * layer + 3)(norm(2 * layer + 1, tokens)))
             tokens = tokens + dense(4 * layer + 4)(mlp)
 
         # Learned-query pooling over T: the query is one vector for every
         # pixel, broadcast (stride 0) to (pixels, 1, D).
         top, nl = 4 * self.num_layers, self.num_layers
         query = dense(top + 1)(
-            norm(2 * nl + 1)(self.pool_query.reshape(1, 1, -1))
+            norm(2 * nl + 1, self.pool_query.reshape(1, 1, -1))
         )
-        keys = norm(2 * nl)(tokens)
+        keys = norm(2 * nl, tokens)
         pooled = temporal_attention(
             query.expand(tokens.shape[0], 1, -1),
             dense(top + 2)(keys),
             dense(top + 3)(keys),
             self.num_heads,
         )
-        out = norm(2 * nl + 2)(dense(top + 4)(pooled[:, 0]))
+        out = norm(2 * nl + 2, dense(top + 4)(pooled[:, 0]))
         return channels_first(out.reshape(batch, height, width, -1))

@@ -22,7 +22,8 @@ cultionet_tpu/utils/profiling.py::profile_trace, on ``torch.profiler``).
   graph captures and replays (``train/graphed.py``, ``add_count``).
   ``utae_date_images`` and ``utae_pad_images`` count the date images of
   the dated batches the loaders deliver and the padding among them
-  (``data/batch.py::count_date_images``).
+  (``data/batch.py::count_date_images``). ``layernorm_kernels`` counts the
+  launches of the LayerNorm kernel (``ops/layer_norm_cuda.py``).
   ``counters()`` adds the kernel launch counters (``ops/*_cuda.py``).
 - ``profile_trace(dir)``: profiles a block, writes the Chrome trace
   (``trace.json``) and the spans' totals with the card's idle time under
@@ -45,6 +46,7 @@ COUNTS: T.Dict[str, int] = {
     "h2d_bytes": 0, "d2h_bytes": 0, "blocking_copies": 0,
     "graph_captures": 0, "graph_replays": 0,
     "utae_date_images": 0, "utae_pad_images": 0,
+    "layernorm_kernels": 0,
 }
 
 _autograd_profiler = torch.autograd.profiler
@@ -229,10 +231,11 @@ def to_host(value: torch.Tensor) -> torch.Tensor:
 
 def counters() -> T.Dict[str, int]:
     """``COUNTS`` and the kernel launch counters, by name."""
-    from ..ops import na_block_cuda, natten_cuda, temporal_cuda
+    from ..ops import layer_norm_cuda, na_block_cuda, natten_cuda, temporal_cuda
 
     out = dict(COUNTS)
-    for table in (natten_cuda.LAUNCHES, temporal_cuda.LAUNCHES, na_block_cuda.LAUNCHES):
+    for table in (natten_cuda.LAUNCHES, temporal_cuda.LAUNCHES,
+                  na_block_cuda.LAUNCHES, layer_norm_cuda.LAUNCHES):
         out.update(table)
     return out
 

@@ -200,8 +200,10 @@ def test_abi_version_gate(artifact, tmp_path):
 
 def test_transformer_graph_names_both_ops(tmp_path):
     """The transformer front end's artifact calls the temporal op 3 times
-    (two layers and the pooling) and the NA op 3 times, and equals JAX's
-    eval forward on the same weights through the dataset pipeline."""
+    (two layers and the pooling), the NA op 3 times and the LayerNorm op 7
+    times (two per layer, the pooling keys and query, the embedding), and
+    equals JAX's eval forward on the same weights through the dataset
+    pipeline."""
     import jax
 
     jax_model, variables = jax_transformer_model(4, in_time=IN_TIME, size=16)
@@ -210,10 +212,12 @@ def test_transformer_graph_names_both_ops(tmp_path):
     assert pred.meta["ops"] == {
         "cultionet_tpu_torch::temporal_attention": 3,
         "cultionet_tpu_torch::na2d": 3,
+        "cultionet_tpu_torch::layer_norm_rows": 7,
     }
     code = str(pred.program.graph_module.code)
     assert "cultionet_tpu_torch.na2d" in code
     assert "cultionet_tpu_torch.temporal_attention" in code
+    assert "cultionet_tpu_torch.layer_norm_rows" in code
     x = _wire(7)
     got = pred(x, LAT, LON)
     vals = np.clip(x.astype(np.float32) / 10000.0, CLIP_MIN, CLIP_MAX)

@@ -278,9 +278,11 @@ def test_counts_equal_the_copies_a_unit_makes(units, path, monkeypatch):
     with profile(activities=[ProfilerActivity.CPU]):
         out = units[path]()
     moved = {k: v - before[k] for k, v in profiling.COUNTS.items()}
-    # No CUDA graph runs on these paths, and no dated (U-TAE) batch.
+    # No CUDA graph runs on these paths, no dated (U-TAE) batch, and no
+    # LayerNorm kernel on the CPU.
     want = {"graph_captures": 0, "graph_replays": 0,
-            "utae_date_images": 0, "utae_pad_images": 0}
+            "utae_date_images": 0, "utae_pad_images": 0,
+            "layernorm_kernels": 0}
     if path == "serve":
         x, lat, lon = units["served_inputs"]
         want.update({"h2d_bytes": x.nbytes + lat.nbytes + lon.nbytes,
