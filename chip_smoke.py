@@ -423,16 +423,10 @@ def na_bwd_bound_ms(shape, itemsize: int):
     return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations")
 
 
-def _launch_counters() -> list:
-    from cultionet_tpu_torch.ops import (
-        layer_norm_cuda,
-        na_block_cuda,
-        natten_cuda,
-        temporal_cuda,
-    )
+def _launch_counters() -> tuple:
+    from cultionet_tpu_torch.ops import flags
 
-    return [natten_cuda.LAUNCHES, temporal_cuda.LAUNCHES,
-            na_block_cuda.LAUNCHES, layer_norm_cuda.LAUNCHES]
+    return flags.launch_tables()
 
 
 def zero_launches() -> None:
@@ -550,14 +544,9 @@ def ptxas_report(log: str) -> list:
 
 
 def phase_build() -> None:
-    from cultionet_tpu_torch.ops import (  # noqa: F401
-        build,
-        layer_norm_cuda,
-        na_block_cuda,
-        natten_cuda,
-        temporal_cuda,
-    )
+    from cultionet_tpu_torch.ops import build, flags
 
+    flags.launch_tables()  # imports each kernel module, which registers its library
     names = list(build.LIBRARIES)
     start = time.perf_counter()
     with ThreadPoolExecutor(len(names)) as pool:
@@ -2299,7 +2288,7 @@ SERVE_SCRIPT = """
 import json, sys, time
 import numpy as np, torch
 from cultionet_tpu_torch.export import load_predictor
-from cultionet_tpu_torch.ops import layer_norm_cuda, natten_cuda, temporal_cuda
+from cultionet_tpu_torch.ops import flags
 
 # fp32 arithmetic in fp32 programs, as in the parent process.
 torch.backends.cuda.matmul.allow_tf32 = False
@@ -2308,8 +2297,7 @@ args = json.loads(sys.argv[1])
 x = torch.from_numpy(np.load(args["wire"])).cuda()
 lat = torch.zeros(x.shape[0], device="cuda")
 lon = torch.zeros(x.shape[0], device="cuda")
-counters = (natten_cuda.LAUNCHES, temporal_cuda.LAUNCHES,
-            layer_norm_cuda.LAUNCHES)
+counters = flags.launch_tables()
 report, rasters = {}, {}
 for name, path in args["artifacts"].items():
     start = time.perf_counter()

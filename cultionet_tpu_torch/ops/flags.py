@@ -1,10 +1,30 @@
-"""Runtime switches for kernel dispatch (counterparts of the Pallas
-neighborhood-attention and temporal-attention switches in
-cultionet_tpu/ops/flags.py, and of the fused NA block's kernel)."""
+"""The port's table of hand-written kernel families: each family's launch
+table (``ops/<module>.py::LAUNCHES``, one count per launch) and, where it
+has one, its runtime switch (counterparts of the Pallas switches in
+cultionet_tpu/ops/flags.py). A new family is added here and nowhere else.
+"""
+
+import typing as T
 
 _USE_CUDA_NATTEN = True
 _USE_CUDA_TEMPORAL = True
 _USE_CUDA_NA_BLOCK = True
+
+
+def launch_tables() -> T.Tuple[T.Dict[str, int], ...]:
+    """Every family's ``LAUNCHES`` dict, the one its launches count in, in
+    kernel order: NA #1-#4, temporal attention #5-#6 and the fused NA block
+    #7, each with a switch below, and LayerNorm #8, which has none. The
+    modules are imported here, not when this one is."""
+    from . import layer_norm_cuda, na_block_cuda, natten_cuda, temporal_cuda
+
+    return (natten_cuda.LAUNCHES, temporal_cuda.LAUNCHES,
+            na_block_cuda.LAUNCHES, layer_norm_cuda.LAUNCHES)
+
+
+def kernels_on() -> bool:
+    """Whether every switch is on (the default)."""
+    return _USE_CUDA_NATTEN and _USE_CUDA_TEMPORAL and _USE_CUDA_NA_BLOCK
 
 
 def set_cuda_natten(enabled: bool) -> None:

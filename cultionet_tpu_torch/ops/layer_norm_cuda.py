@@ -9,9 +9,7 @@ The kernel chooses each launch's plan itself, from the type and the width
 ``launch_plan`` mirrors that choice in pure Python, so the CPU tests check
 that a plan covers every row and chunk once; ``card_plan`` asks the library
 for the plan it launches, and the card tests hold the two equal.
-``LAUNCHES`` counts the kernel's launches, one per wrapper call, and each
-launch also adds to the program counter ``layernorm_kernels``
-(``utils/profiling.py``).
+``LAUNCHES`` counts the kernel's launches, one per wrapper call.
 """
 
 import ctypes
@@ -22,7 +20,6 @@ import typing as T
 import torch
 
 from . import build
-from ..utils import profiling
 
 Tensor = torch.Tensor
 
@@ -187,5 +184,4 @@ def launch_layer_norm_rows(
         out.data_ptr(), rows, width, float(eps),
     )
     LAUNCHES["layer_norm_rows"] += 1
-    profiling.add_count("layernorm_kernels")
     return out

@@ -9,11 +9,11 @@ step where the eager step issues some twenty thousand operators.
 
 - ``eager_reason``: why a call must run eagerly, from what the call can
   observe, or None where a graph is safe: the plain train step (no
-  gradient all-reduce), an update on device scalars
-  (``optim.py::Optimizer.device_scalars``: Adam or AdamW over unsharded
-  parameters; RAdam and SGD read their hyperparameters on the host), no
-  gradient accumulation, no rematerialized segment, the hand-written
-  kernels on, and the indices, parameters and generator on CUDA.
+  gradient all-reduce, so no sharded step), an update on device scalars
+  (``optim.py::Optimizer.device_scalars``: Adam or AdamW; RAdam and SGD
+  read their hyperparameters on the host), no gradient accumulation, no
+  rematerialized segment, every kernel switch on (``ops/flags.py``), and
+  the indices, parameters and generator on CUDA.
 - ``GraphedStep``: per setup (the model, the optimizer and its loads, the
   generator, the resident arrays, the index vector's shape and dtype, the
   kernel switches) the first ``WARMUP`` calls run eagerly on a side
@@ -21,10 +21,10 @@ step where the eager step issues some twenty thousand operators.
   replays: it copies the index vector into the graph's own, fills the
   optimizer's device scalars for the update, replays, and returns clones
   of the logs (the next replay overwrites the graph's). The generator is
-  registered with the graph, so each replay draws new numbers; the kernel
-  launch counters (``ops/*_cuda.py``) and the Python counters (the
-  optimizer's update count, the state's step) advance as an eager step
-  advances them. Another setup drops the graph and starts over.
+  registered with the graph, so each replay draws new numbers; every
+  kernel launch table (``ops/flags.py::launch_tables``) and the Python
+  counters (the optimizer's update count, the state's step) advance as an
+  eager step advances them. Another setup drops the graph and starts over.
 """
 
 import typing as T
@@ -39,20 +39,6 @@ Tensor = torch.Tensor
 WARMUP = 2
 
 
-def _launch_tables() -> T.Tuple[T.Dict[str, int], ...]:
-    from ..ops import na_block_cuda, natten_cuda, temporal_cuda
-
-    return (natten_cuda.LAUNCHES, temporal_cuda.LAUNCHES, na_block_cuda.LAUNCHES)
-
-
-def _kernels_on() -> bool:
-    return (
-        flags.cuda_natten_enabled()
-        and flags.cuda_temporal_enabled()
-        and flags.cuda_na_block_enabled()
-    )
-
-
 def eager_reason(state, inner, indices: Tensor, generator) -> T.Optional[str]:
     """Why ``inner`` (the train step over a gathered batch) cannot be
     replayed as a graph on this call; None where it can."""
@@ -65,7 +51,7 @@ def eager_reason(state, inner, indices: Tensor, generator) -> T.Optional[str]:
         return "gradient accumulation"
     if any(getattr(m, "remat", False) for m in model.modules()):
         return "rematerialized segments"
-    if not _kernels_on():
+    if not flags.kernels_on():
         return "the plain attention path"
     on_cuda = [indices.device, getattr(generator, "device", None)]
     on_cuda += [p.device for p in model.parameters()]
@@ -99,7 +85,7 @@ class GraphedStep:
             generator,
             tuple(indices.shape), indices.dtype, indices.device,
             tuple(v.data_ptr() for v in arrays.values() if v is not None),
-            _kernels_on(),
+            flags.kernels_on(),
         )
 
     def plan(self, key: tuple, reason: T.Callable[[], T.Optional[str]]) -> str:
@@ -152,7 +138,7 @@ class GraphedStep:
 
     def _capture(self, state, arrays, indices, generator) -> None:
         self.indices = indices.clone()
-        before = [dict(table) for table in _launch_tables()]
+        before = [dict(table) for table in flags.launch_tables()]
         graph = torch.cuda.CUDAGraph()
         graph.register_generator_state(generator)
         # The captured update reads the scalars filled here, and each
@@ -164,7 +150,7 @@ class GraphedStep:
         self.logs = logs
         self.launches = [
             {k: table[k] - old.get(k, 0) for k in table if table[k] != old.get(k, 0)}
-            for table, old in zip(_launch_tables(), before)
+            for table, old in zip(flags.launch_tables(), before)
         ]
         self.graph = graph
         profiling.add_count("graph_captures")
@@ -181,6 +167,6 @@ class GraphedStep:
         state.optimizer.count += 1
         state.step += 1
         profiling.add_count("graph_replays")
-        for table, moved in zip(_launch_tables(), self.launches):
+        for table, moved in zip(flags.launch_tables(), self.launches):
             for name, n in moved.items():
                 table[name] += n

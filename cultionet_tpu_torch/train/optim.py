@@ -10,21 +10,23 @@ the running mean of ``k`` mini-step gradients), clipping (global norm or
 per element) and the torch optimizer, with the learning rate and AdamW's
 beta1 set from their schedules at the update count before each update.
 RAdam is optax's rule (``OptaxRAdam``), which ``torch.optim.RAdam`` is not.
-Under FSDP (``parallel/mesh.py::shard_state_fsdp``) the sharded parameters
-are DTensors: the global norm sums every shard's squares over the group,
-and the torch optimizer runs its per-tensor loop (its multi-tensor kernels
-refuse a mix of DTensors and tensors).
 
-Adam and AdamW on unsharded parameters apply the update themselves
-(``Optimizer.device_scalars``), on every device: torch's multi-tensor
+Adam and AdamW apply one update of their own (``Optimizer.device_scalars``,
+``_adam_update``), on every device and sharded or not: torch's multi-tensor
 arithmetic, with the scalars that change from step to step (the learning
 rate, AdamW's scheduled beta1 and the bias corrections) read from 0-d
 tensors beside the parameters that ``fill_scalars`` sets before each
 update. A CUDA graph of the train step (``train/graphed.py``) then replays
 each step's schedule; torch's own multi-tensor and fused Adam read a
 tensor beta1 on the host, which a capture refuses. The torch optimizer
-holds the state, so ``state_dict`` keeps its layout; it runs its own
-update only on FSDP's DTensors.
+holds the state, so ``state_dict`` keeps its layout; RAdam and SGD run its
+``step``.
+
+Under FSDP (``parallel/mesh.py::shard_state_fsdp``) the sharded parameters,
+their gradients and Adam's moments are DTensors: the global norm sums every
+shard's squares over the group, the clip and Adam's update work on each
+rank's shard (``local_part``), and SGD runs torch's per-tensor loop (its
+multi-tensor one refuses a mix of DTensors and tensors).
 """
 
 import dataclasses
@@ -259,16 +261,6 @@ def global_norm(grads: T.List[Tensor]) -> Tensor:
     return squares.sqrt()
 
 
-def _on_device_scalars(params: T.List[Tensor], spec: OptimizerSpec) -> bool:
-    """Whether Adam's update runs on device scalars: Adam or AdamW over
-    parameters none of which is sharded."""
-    return (
-        spec.optimizer in ("Adam", "AdamW")
-        and bool(params)
-        and not any(is_sharded(p) for p in params)
-    )
-
-
 class Optimizer:
     """An ``OptimizerSpec`` bound to parameters. ``count`` is the number of
     updates applied (optax's inner count); the schedules are read at it.
@@ -293,15 +285,16 @@ class Optimizer:
         self.generation = 0
         self._acc: T.Optional[T.List[Tensor]] = None
         lr = self._learning_rate()
-        foreach = False if any(is_sharded(p) for p in params) else None
-        self.device_scalars = _on_device_scalars(params, spec)
+        self.device_scalars = spec.optimizer in ("Adam", "AdamW")
         if self.device_scalars:
             # The update's scalars, filled before each update.
+            device = local_part(params[0]).device
             self.scalars = {
-                name: torch.zeros((), dtype=torch.float32, device=params[0].device)
+                name: torch.zeros((), dtype=torch.float32, device=device)
                 for name in ("decay", "beta1", "one_minus_beta1", "bc2_sqrt",
                              "neg_step_size")
             }
+        # ``capturable``: loads put the step counts beside the parameters.
         if spec.optimizer == "AdamW":
             self.torch_optimizer = torch.optim.AdamW(
                 params,
@@ -309,14 +302,11 @@ class Optimizer:
                 betas=(self._beta1(), 0.98),
                 eps=spec.eps,
                 weight_decay=spec.weight_decay,
-                foreach=foreach,
-                # Loads put the step counts beside the parameters.
-                capturable=self.device_scalars,
+                capturable=True,
             )
         elif spec.optimizer == "Adam":
             self.torch_optimizer = torch.optim.Adam(
-                params, lr=lr, betas=(0.9, 0.999), eps=spec.eps,
-                foreach=foreach, capturable=self.device_scalars,
+                params, lr=lr, betas=(0.9, 0.999), eps=spec.eps, capturable=True,
             )
         elif spec.optimizer == "RAdam":
             self.torch_optimizer = OptaxRAdam(
@@ -325,7 +315,7 @@ class Optimizer:
         else:
             self.torch_optimizer = torch.optim.SGD(
                 params, lr=lr, momentum=0.9, weight_decay=spec.weight_decay,
-                foreach=foreach,
+                foreach=False if any(is_sharded(p) for p in params) else None,
             )
 
     def _learning_rate(self) -> float:
@@ -378,8 +368,10 @@ class Optimizer:
 
     def _adam_update(self, params: T.List[Tensor], grads: T.List[Tensor]) -> None:
         """Adam's update (AdamW's: decoupled weight decay) with torch's
-        multi-tensor ops and state, on the device scalars. The first moment
-        is ``beta1 m + (1 - beta1) g`` (torch interpolates: the same up to
+        multi-tensor ops and state, on the device scalars, on each rank's
+        part of the parameters, gradients and moments (a DTensor's moments
+        are DTensors sharded as it is). The first moment is
+        ``beta1 m + (1 - beta1) g`` (torch interpolates: the same up to
         rounding)."""
         opt = self.torch_optimizer
         group = opt.param_groups[0]
@@ -388,12 +380,14 @@ class Optimizer:
         for p in params:
             slot = opt.state[p]
             if not slot:
-                slot["step"] = torch.zeros((), dtype=torch.float32, device=p.device)
+                slot["step"] = torch.zeros_like(self.scalars["beta1"])
                 slot["exp_avg"] = torch.zeros_like(p, memory_format=torch.preserve_format)
                 slot["exp_avg_sq"] = torch.zeros_like(p, memory_format=torch.preserve_format)
             steps.append(slot["step"])
-            exp_avgs.append(slot["exp_avg"])
-            exp_avg_sqs.append(slot["exp_avg_sq"])
+            exp_avgs.append(local_part(slot["exp_avg"]))
+            exp_avg_sqs.append(local_part(slot["exp_avg_sq"]))
+        params = [local_part(p) for p in params]
+        grads = [local_part(g) for g in grads]
         s = self.scalars
         torch._foreach_add_(steps, 1.0)
         if group["weight_decay"] != 0 and self.spec.optimizer == "AdamW":
@@ -428,28 +422,23 @@ class Optimizer:
                 return False
             grads, self._acc = self._acc, None
 
+        grads = self._clip(grads)
         if self.device_scalars:
             # A CUDA graph's capture must not record the fills: the replay's
             # caller fills them for each replayed update.
             device = self.scalars["beta1"].device
             if not (device.type == "cuda" and torch.cuda.is_current_stream_capturing()):
                 self.fill_scalars()
-            grads = self._clip(grads)
             self._adam_update(
                 list(itertools.compress(self.params, self.trainable)),
                 list(itertools.compress(grads, self.trainable)),
             )
-            self.zero_grad()
-            self.count += 1
-            return True
-
-        for group in self.torch_optimizer.param_groups:
-            group["lr"] = self._learning_rate()
-            if self.spec.optimizer == "AdamW":
-                group["betas"] = (self._beta1(), group["betas"][1])
-        for p, g, train in zip(self.params, self._clip(grads), self.trainable):
-            p.grad = g if train else None  # torch skips a None gradient
-        self.torch_optimizer.step()
+        else:
+            for group in self.torch_optimizer.param_groups:
+                group["lr"] = self._learning_rate()
+            for p, g, train in zip(self.params, grads, self.trainable):
+                p.grad = g if train else None  # torch skips a None gradient
+            self.torch_optimizer.step()
         self.zero_grad()
         self.count += 1
         return True

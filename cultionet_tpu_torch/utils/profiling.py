@@ -10,8 +10,8 @@ cultionet_tpu/utils/profiling.py::profile_trace, on ``torch.profiler``).
   profile's timeline, and records (span id, parent id, request id, name,
   start ns, end ns) on the profiler's host clock (``time.time_ns``). A
   span opened with no span open is a root: it starts a request id that
-  the spans inside it share, and it records how ``COUNTS`` moved while it
-  was open. ``spans()``, ``totals()`` and ``reset()`` read and clear the
+  the spans inside it share, and it records how ``counters()`` moved while
+  it was open. ``spans()``, ``totals()`` and ``reset()`` read and clear the
   records; past ``MAX_RECORDS`` records are dropped and counted, and
   ``totals()`` stays exact.
 - ``COUNTS``: the copies between host and card of the data, predict and
@@ -22,9 +22,9 @@ cultionet_tpu/utils/profiling.py::profile_trace, on ``torch.profiler``).
   graph captures and replays (``train/graphed.py``, ``add_count``).
   ``utae_date_images`` and ``utae_pad_images`` count the date images of
   the dated batches the loaders deliver and the padding among them
-  (``data/batch.py::count_date_images``). ``layernorm_kernels`` counts the
-  launches of the LayerNorm kernel (``ops/layer_norm_cuda.py``).
-  ``counters()`` adds the kernel launch counters (``ops/*_cuda.py``).
+  (``data/batch.py::count_date_images``). ``counters()`` adds every
+  kernel's launch count (``ops/flags.py::launch_tables``), so a root
+  span's counts hold each kernel's launches too.
 - ``profile_trace(dir)``: profiles a block, writes the Chrome trace
   (``trace.json``) and the spans' totals with the card's idle time under
   each (``spans.json``, from ``idle_by_span``).
@@ -40,13 +40,14 @@ from pathlib import Path
 
 import torch
 
+from ..ops import flags
+
 PREFIX = "cultionet."
 MAX_RECORDS = 200_000
 COUNTS: T.Dict[str, int] = {
     "h2d_bytes": 0, "d2h_bytes": 0, "blocking_copies": 0,
     "graph_captures": 0, "graph_replays": 0,
     "utae_date_images": 0, "utae_pad_images": 0,
-    "layernorm_kernels": 0,
 }
 
 _autograd_profiler = torch.autograd.profiler
@@ -111,7 +112,7 @@ class _Span:
         self.id = next(_RECORDER.ids)
         self.parent = parent.id if parent else None
         self.request = parent.request if parent else next(_RECORDER.requests)
-        self.counts0 = None if parent else dict(COUNTS)
+        self.counts0 = None if parent else counters()
         self.child_ns = 0
         stack.append(self)
         self.range = torch.profiler.record_function(PREFIX + self.name)
@@ -133,7 +134,7 @@ class _Span:
             "name": self.name, "start_ns": self.start, "end_ns": end,
         }
         if self.counts0 is not None:
-            record["counts"] = {k: v - self.counts0[k] for k, v in COUNTS.items()}
+            record["counts"] = {k: v - self.counts0[k] for k, v in counters().items()}
         with _lock:
             total = _RECORDER.totals.setdefault(
                 self.name, {"count": 0, "total_ns": 0, "self_ns": 0, "counts": {}}
@@ -181,7 +182,8 @@ def dropped() -> int:
 def totals() -> T.Dict[str, dict]:
     """Per span name: ``count``, ``total_ns``, ``self_ns`` (the duration
     less the part its child spans cover) and, summed over the root spans
-    of that name, ``counts``: how each of ``COUNTS`` moved inside them."""
+    of that name, ``counts``: how each of ``counters()`` moved inside
+    them."""
     with _lock:
         return {
             name: dict(t, counts=dict(t["counts"]))
@@ -231,11 +233,8 @@ def to_host(value: torch.Tensor) -> torch.Tensor:
 
 def counters() -> T.Dict[str, int]:
     """``COUNTS`` and the kernel launch counters, by name."""
-    from ..ops import layer_norm_cuda, na_block_cuda, natten_cuda, temporal_cuda
-
     out = dict(COUNTS)
-    for table in (natten_cuda.LAUNCHES, temporal_cuda.LAUNCHES,
-                  na_block_cuda.LAUNCHES, layer_norm_cuda.LAUNCHES):
+    for table in flags.launch_tables():
         out.update(table)
     return out
 

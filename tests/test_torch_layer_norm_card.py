@@ -15,8 +15,8 @@ on the card:
   it as the library;
 - a fp32 transformer forward at ``hidden_channels`` 36 (not a multiple of
   8) with the kernel against the same forward through ``F.layer_norm``;
-- ``LAUNCHES["layer_norm_rows"]`` and the program counter
-  ``layernorm_kernels`` advance by 7 a forward; under a gradient nothing
+- ``LAUNCHES["layer_norm_rows"]``, and the counts of a root span around
+  the forward, advance by 7 a forward; under a gradient nothing
   launches.
 
 Needs a CUDA card; skipped without one. This file imports neither JAX nor
@@ -142,12 +142,18 @@ def test_transformer_forward_with_kernel(card, monkeypatch):
     gen = torch.Generator(device=card).manual_seed(1)
     x = torch.rand(8, 12, 140, 140, 3, device=card, generator=gen)
     launches = layer_norm_cuda.LAUNCHES["layer_norm_rows"]
-    counted = profiling.COUNTS["layernorm_kernels"]
+    profiling.enabled(True)
+    try:
+        with torch.inference_mode(), profiling.span("test.forward"):
+            got = model16(x.to(torch.bfloat16))
+        counted = profiling.totals()["test.forward"]["counts"]["layer_norm_rows"]
+    finally:
+        profiling.enabled(False)
+        profiling.reset()
+    assert counted == 7
     with torch.inference_mode():
-        got = model16(x.to(torch.bfloat16))
         torch.cuda.synchronize()
         assert layer_norm_cuda.LAUNCHES["layer_norm_rows"] - launches == 7
-        assert profiling.COUNTS["layernorm_kernels"] - counted == 7
         _library_norms(monkeypatch)
         want = model16(x.to(torch.bfloat16))
         ref = model32(x)

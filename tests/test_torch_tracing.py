@@ -9,14 +9,18 @@ an exported artifact's served call.
   within 1 ms of its ``cultionet.<name>`` event in the profile (one
   clock).
 - ``totals()`` self time of nested spans; the record cap drops and
-  counts, the totals stay exact; ``COUNTS`` equal the bytes and copies of
-  a served call and of a scene; a traced train step equals an untraced
-  one bit for bit; ``idle_by_span`` gives each device gap to the
-  innermost span; ``profile_trace`` writes ``spans.json`` beside
-  ``trace.json``; ``span_profile.py --small`` runs.
+  counts, the totals stay exact; ``flags.launch_tables()`` holds every
+  ``LAUNCHES`` dict of ``ops/``, and a root span counts each kernel's
+  launches; the counters equal the bytes and copies of a served call and
+  of a scene; a traced train step equals an untraced one bit for bit;
+  ``idle_by_span`` gives each device gap to the innermost span;
+  ``profile_trace`` writes ``spans.json`` beside ``trace.json``;
+  ``span_profile.py --small`` runs.
 """
 
+import importlib
 import json
+import pkgutil
 import subprocess
 import sys
 import types
@@ -27,9 +31,11 @@ import pytest
 import torch
 from torch.profiler import ProfilerActivity, profile
 
+from cultionet_tpu_torch import ops
 from cultionet_tpu_torch.data.batch import Batch
 from cultionet_tpu_torch.export import export_state, load_predictor
 from cultionet_tpu_torch.models import CultioNet
+from cultionet_tpu_torch.ops import flags
 from cultionet_tpu_torch.predict import ScenePredictor
 from cultionet_tpu_torch.train import optim as torch_optim
 from cultionet_tpu_torch.train import step as torch_step
@@ -165,7 +171,7 @@ def test_profiled_unit_records_root_and_children(units, path):
             names[r["name"]] = names.get(r["name"], 0) + 1
             assert root["start_ns"] <= r["start_ns"] <= r["end_ns"] <= root["end_ns"]
         assert names == CHILDREN[path]
-        assert set(root["counts"]) == set(profiling.COUNTS)
+        assert set(root["counts"]) == set(profiling.counters())
     totals = profiling.totals()
     assert totals[ROOTS[path]]["count"] == 2
     assert {n: totals[n]["count"] for n in CHILDREN[path]} == {
@@ -262,6 +268,43 @@ def test_cap_drops_and_counts_and_totals_stay_exact(monkeypatch):
     assert profiling.spans() == [] and profiling.dropped() == 0 and profiling.totals() == {}
 
 
+def test_launch_tables_hold_every_ops_launches_dict():
+    """Each ``LAUNCHES`` dict a module of ``ops/`` defines is one of
+    ``flags.launch_tables()``, so a root span and the graph's replay count
+    every kernel's launches."""
+    defined = []
+    for info in pkgutil.iter_modules(ops.__path__):
+        module = importlib.import_module(f"{ops.__name__}.{info.name}")
+        if isinstance(getattr(module, "LAUNCHES", None), dict):
+            defined.append(module.LAUNCHES)
+    tables = flags.launch_tables()
+    assert len(defined) == len(tables)
+    assert all(any(t is d for t in tables) for d in defined)
+    names = [name for table in tables for name in table]
+    assert len(names) == len(set(names))
+    assert not set(names) & set(profiling.COUNTS)
+
+
+def test_root_span_counts_each_kernels_launches(monkeypatch):
+    """A launch table advanced inside a root span shows in the root's
+    counts (not its child's), by the kernel's name."""
+    profiling.enabled(True)
+    tables = flags.launch_tables()
+    moved = {name: i + 1 for i, name in enumerate(n for t in tables for n in t)}
+    with profiling.span("root"):
+        with profiling.span("child"):
+            for table in tables:
+                for name in table:
+                    monkeypatch.setitem(table, name, table[name] + moved[name])
+    totals = profiling.totals()
+    assert totals["child"]["counts"] == {}
+    counts = totals["root"]["counts"]
+    assert {name: counts[name] for name in moved} == moved
+    assert {k: v for k, v in counts.items() if k not in moved} == {
+        k: 0 for k in profiling.COUNTS
+    }
+
+
 def test_cpu_paths_copy_nothing(units):
     before = dict(profiling.COUNTS)
     units["serve"]()
@@ -274,15 +317,15 @@ def test_counts_equal_the_copies_a_unit_makes(units, path, monkeypatch):
     """With every copy taken as one between host and card (the CPU has no
     card), the counters see each copy the unit asks for."""
     monkeypatch.setattr(profiling, "_crosses", lambda src, dst: True)
-    before = dict(profiling.COUNTS)
+    before = profiling.counters()
     with profile(activities=[ProfilerActivity.CPU]):
         out = units[path]()
-    moved = {k: v - before[k] for k, v in profiling.COUNTS.items()}
+    moved = {k: v - before[k] for k, v in profiling.counters().items()}
     # No CUDA graph runs on these paths, no dated (U-TAE) batch, and no
-    # LayerNorm kernel on the CPU.
+    # kernel launches on the CPU.
     want = {"graph_captures": 0, "graph_replays": 0,
-            "utae_date_images": 0, "utae_pad_images": 0,
-            "layernorm_kernels": 0}
+            "utae_date_images": 0, "utae_pad_images": 0}
+    want.update({name: 0 for table in flags.launch_tables() for name in table})
     if path == "serve":
         x, lat, lon = units["served_inputs"]
         want.update({"h2d_bytes": x.nbytes + lat.nbytes + lon.nbytes,

@@ -9,10 +9,9 @@ CPU (the graph itself runs only on a card:
   gave, at every resize of the CLI-default model at 100 and 140 px; the
   cache returns one tensor.
 - The optimizer on device scalars (Adam's update with the learning rate,
-  beta1 and the bias corrections read from 0-d tensors), which every
-  unsharded Adam and AdamW runs, follows torch's update (the path of
-  FSDP's DTensors) over 10 OneCycle steps of AdamW with the global-norm
-  clip; plain Adam keeps beta1 at 0.9.
+  beta1 and the bias corrections read from 0-d tensors), which every Adam
+  and AdamW runs, follows torch's own ``AdamW`` over 10 OneCycle steps
+  with the global-norm clip, and torch's ``Adam`` with beta1 kept at 0.9.
 - The engagement rule keeps every setup it cannot see to be safe eager:
   the CPU, a gradient all-reduce, accumulation, RAdam, SGD,
   rematerialized segments, the plain attention path; another index shape
@@ -138,42 +137,59 @@ def onecycle_spec(total_steps=40, optimizer="AdamW"):
     )
 
 
-def float_and_scalar_optimizers(monkeypatch, optimizer="AdamW"):
-    """The same start under torch's update (the path of FSDP's DTensors,
-    forced here) and under the device-scalar update (every other Adam)."""
+def oracle_and_scalar_optimizers(optimizer="AdamW"):
+    """The same start under the port's update (every Adam and AdamW) and
+    under torch's own ``AdamW`` or ``Adam`` built directly, the oracle."""
     gen = torch.Generator().manual_seed(3)
     shapes = [(7, 5), (5,), (3, 3, 2)]
     start = [torch.randn(s, generator=gen) for s in shapes]
     scalar_params = [p.clone().requires_grad_() for p in start]
     scalar_opt = onecycle_spec(optimizer=optimizer).init(scalar_params)
-    with monkeypatch.context() as patch:
-        patch.setattr(torch_optim, "_on_device_scalars", lambda params, spec: False)
-        float_params = [p.clone().requires_grad_() for p in start]
-        float_opt = onecycle_spec(optimizer=optimizer).init(float_params)
-    assert scalar_opt.device_scalars and not float_opt.device_scalars
-    return gen, shapes, start, (float_params, float_opt), (scalar_params, scalar_opt)
+    oracle_params = [p.clone().requires_grad_() for p in start]
+    if optimizer == "AdamW":
+        oracle = torch.optim.AdamW(oracle_params, betas=(0.9, 0.98), eps=1e-4,
+                                   weight_decay=1e-3)
+    else:
+        oracle = torch.optim.Adam(oracle_params, betas=(0.9, 0.999), eps=1e-4)
+    assert scalar_opt.device_scalars
+    return gen, shapes, start, (oracle_params, oracle), (scalar_params, scalar_opt)
 
 
-def test_device_scalars_follow_the_float_path(monkeypatch):
-    gen, shapes, start, (float_params, float_opt), (scalar_params, scalar_opt) = (
-        float_and_scalar_optimizers(monkeypatch)
+def oracle_step(oracle, params, grads, spec, count):
+    """One update of the oracle at update count ``count``: the gradients
+    clipped to global norm 1 as optax clips them, the learning rate and
+    AdamW's beta1 set from the spec's schedules (plain Adam keeps 0.9)."""
+    norm = torch.nn.utils.get_total_norm(grads)
+    scale = torch.where(norm < 1.0, torch.ones_like(norm), 1.0 / norm)
+    group = oracle.param_groups[0]
+    group["lr"] = spec.learning_rate(count)
+    if isinstance(oracle, torch.optim.AdamW):
+        group["betas"] = (spec.b1_schedule(count), group["betas"][1])
+    for p, g in zip(params, grads):
+        p.grad = g * scale
+    oracle.step()
+
+
+def test_device_scalars_follow_the_float_path():
+    gen, shapes, start, (oracle_params, oracle), (scalar_params, scalar_opt) = (
+        oracle_and_scalar_optimizers()
     )
-    for _ in range(10):
+    for count in range(10):
         grads = [torch.randn(s, generator=gen) for s in shapes]
-        for params, opt in ((float_params, float_opt), (scalar_params, scalar_opt)):
-            for p, g in zip(params, grads):
-                p.grad = g.clone()
-            assert opt.step()
-    assert scalar_opt.count == float_opt.count == 10
-    for a, b, p0 in zip(float_params, scalar_params, start):
+        oracle_step(oracle, oracle_params, grads, scalar_opt.spec, count)
+        for p, g in zip(scalar_params, grads):
+            p.grad = g.clone()
+        assert scalar_opt.step()
+    assert scalar_opt.count == 10
+    for a, b, p0 in zip(oracle_params, scalar_params, start):
         torch.testing.assert_close(b, a, rtol=1e-6, atol=1e-7)
         assert not torch.equal(a, p0)
-    float_state = float_opt.torch_optimizer.state
+    oracle_state = oracle.state
     scalar_state = scalar_opt.torch_optimizer.state
-    for a, b in zip(float_params, scalar_params):
-        assert float(scalar_state[b]["step"]) == float(float_state[a]["step"]) == 10
+    for a, b in zip(oracle_params, scalar_params):
+        assert float(scalar_state[b]["step"]) == float(oracle_state[a]["step"]) == 10
         for name in ("exp_avg", "exp_avg_sq"):
-            torch.testing.assert_close(scalar_state[b][name], float_state[a][name],
+            torch.testing.assert_close(scalar_state[b][name], oracle_state[a][name],
                                        rtol=1e-6, atol=1e-8)
     # The scalars the last update read: the schedules at count 9, t = 10.
     spec = scalar_opt.spec
@@ -183,20 +199,20 @@ def test_device_scalars_follow_the_float_path(monkeypatch):
         -spec.learning_rate(9) / (1 - spec.b1_schedule(9) ** 10), rel=1e-6)
 
 
-def test_plain_adam_keeps_beta1_at_its_default(monkeypatch):
+def test_plain_adam_keeps_beta1_at_its_default():
     # build_optimizer: Adam's beta1 is 0.9 whatever b1_schedule says.
-    gen, shapes, start, (float_params, float_opt), (scalar_params, scalar_opt) = (
-        float_and_scalar_optimizers(monkeypatch, optimizer="Adam")
+    gen, shapes, start, (oracle_params, oracle), (scalar_params, scalar_opt) = (
+        oracle_and_scalar_optimizers(optimizer="Adam")
     )
     assert scalar_opt.spec.b1_schedule(5) != 0.9
-    for _ in range(5):
+    for count in range(5):
         grads = [torch.randn(s, generator=gen) for s in shapes]
-        for params, opt in ((float_params, float_opt), (scalar_params, scalar_opt)):
-            for p, g in zip(params, grads):
-                p.grad = g.clone()
-            assert opt.step()
+        oracle_step(oracle, oracle_params, grads, scalar_opt.spec, count)
+        for p, g in zip(scalar_params, grads):
+            p.grad = g.clone()
+        assert scalar_opt.step()
         assert float(scalar_opt.scalars["beta1"]) == pytest.approx(0.9, rel=1e-7)
-    for a, b, p0 in zip(float_params, scalar_params, start):
+    for a, b, p0 in zip(oracle_params, scalar_params, start):
         torch.testing.assert_close(b, a, rtol=1e-6, atol=1e-7)
         assert not torch.equal(a, p0)
 

@@ -16,6 +16,9 @@ with either temporal encoder: the convolutional one and the transformer
 - An optimizer ``state_dict`` taken after replays reloads into an eager
   run that resumes as the graphed one goes on.
 - A replay under ``torch.profiler`` lists the attention kernels.
+- An AdamW state whose step counts lie on the host (as torch's own
+  update left them under FSDP) loads with the counts on the card and
+  resumes as the state it was taken from goes on.
 
 Needs a CUDA card; skipped without one. This file imports neither JAX nor
 the JAX package, so it runs on a machine without them:
@@ -31,7 +34,7 @@ import torch
 
 from cultionet_tpu_torch.data.device_cache import gather_batch
 from cultionet_tpu_torch.models import CultioNet
-from cultionet_tpu_torch.ops import natten_cuda, temporal_cuda
+from cultionet_tpu_torch.ops import flags
 from cultionet_tpu_torch.train import optim as torch_optim
 from cultionet_tpu_torch.train.step import (
     create_train_state, make_hbm_train_step, make_train_step,
@@ -144,7 +147,7 @@ def test_graphed_steps_follow_eager_steps(card, precision, encoder):
 
 
 def launch_counts():
-    return {**natten_cuda.LAUNCHES, **temporal_cuda.LAUNCHES}
+    return {name: n for table in flags.launch_tables() for name, n in table.items()}
 
 
 @pytest.mark.card
@@ -200,3 +203,29 @@ def test_profiled_replay_lists_the_attention_kernels(card):
     kernels = [e.name() for e in events if "CUDA" in str(e.device_type())]
     assert any("na2d_fwd" in k for k in kernels) and any("na2d_bwd" in k for k in kernels)
     assert profiling.totals()["train.replay"]["count"] == 1
+
+
+@pytest.mark.card
+def test_adam_resumes_steps_saved_on_the_host(card):
+    spec = torch_optim.build_optimizer("AdamW", 1e-3)
+    gen = torch.Generator(device=card).manual_seed(5)
+    start = [torch.randn(s, device=card, generator=gen) for s in [(5, 3), (3,)]]
+    params = [p.clone().requires_grad_() for p in start]
+    opt = spec.init(params)
+    for p in params:
+        p.grad = torch.ones_like(p)
+    opt.step()
+    state = copy.deepcopy(opt.state_dict())  # as read from a file: no shared tensors
+    for slot in state["torch_optimizer"]["state"].values():
+        slot["step"] = slot["step"].cpu()
+    resumed_params = [p.detach().clone().requires_grad_() for p in params]
+    resumed = spec.init(resumed_params)
+    resumed.load_state_dict(state)
+    for a, b in ((opt, params), (resumed, resumed_params)):
+        for p in b:
+            p.grad = torch.full_like(p, 0.5)
+        a.step()
+    for p, q in zip(params, resumed_params):
+        slot = resumed.torch_optimizer.state[q]
+        assert slot["step"].device.type == "cuda" and float(slot["step"]) == 2
+        assert torch.equal(p, q)
