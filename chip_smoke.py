@@ -143,7 +143,8 @@ on the first phase that fails:
     else, its graph naming the registered ops as often; its rasters on a seeded int16 batch equal to the
     in-process predict step's within 1e-5 (fp32) and 2e-2 (bf16), both
     with cuDNN's deterministic algorithms (with its defaults two calls of
-    the fp32 step differ by up to about 1e-5, recorded). Served chips/s of
+    the fp32 step differ by up to about 1e-5, recorded), the served side a
+    replay of the program's CUDA graph, counted and compared. Served chips/s of
     ``call_on_device`` beside the in-process step's, export seconds and
     artifact bytes.
 20. transfer (the rest of single-card train): ``fit_transfer`` from the
@@ -205,8 +206,9 @@ on the first phase that fails:
     within 1e-5, the generator's state equal), and the peak memory of a
     step with and without remat at batch 4 and 16. O6 also: a bf16
     artifact of batch 8 x 140^2 through ``export_state``, served in
-    process equal (0.0) to the eager serve program, two coordinate
-    batches giving different outputs. Then ``train --pool-by-max
+    process (each compared call one replay of its CUDA graph) equal
+    (0.0) to the eager serve program, two coordinate batches giving
+    different outputs. Then ``train --pool-by-max
     --batchnorm-first --use-latlon --epochs 1`` and ``predict`` on a copy
     of the cli phase's project: the launches of a 1-epoch ``fit``, 12
     na2d_fwd, the raster written. Each configuration's seconds.
@@ -2287,8 +2289,9 @@ EXPORT_TIMED_CALLS = 10
 SERVE_SCRIPT = """
 import json, sys, time
 import numpy as np, torch
-from cultionet_tpu_torch.export import load_predictor
+from cultionet_tpu_torch.export import WARMUP, load_predictor
 from cultionet_tpu_torch.ops import flags
+from cultionet_tpu_torch.utils import profiling
 
 # fp32 arithmetic in fp32 programs, as in the parent process.
 torch.backends.cuda.matmul.allow_tf32 = False
@@ -2303,7 +2306,9 @@ for name, path in args["artifacts"].items():
     start = time.perf_counter()
     pred = load_predictor(path)
     load_s = time.perf_counter() - start
-    pred.call_on_device(x, lat, lon)
+    # The warm-ups and the capture of the program's CUDA graph.
+    for _ in range(WARMUP + 1):
+        pred.call_on_device(x, lat, lon)
     torch.cuda.synchronize()
     start = time.perf_counter()
     for _ in range(args["calls"]):
@@ -2311,19 +2316,26 @@ for name, path in args["artifacts"].items():
     torch.cuda.synchronize()
     seconds = time.perf_counter() - start
     # The compared call: cuDNN's deterministic algorithms (its default
-    # transposed convolutions accumulate in a varying order).
+    # transposed convolutions accumulate in a varying order). They make
+    # another graph, so its warm-ups and capture come first and the
+    # compared call replays it.
     torch.backends.cudnn.deterministic = True
+    for _ in range(WARMUP + 1):
+        pred.call_on_device(x, lat, lon)
     for counter in counters:
         for key in counter:
             counter[key] = 0
+    replays = profiling.COUNTS["graph_replays"]
     out = pred.call_on_device(x, lat, lon)
     torch.cuda.synchronize()
+    replays = profiling.COUNTS["graph_replays"] - replays
     torch.backends.cudnn.deterministic = False
     launches = {k: v for c in counters for k, v in c.items() if v}
     code = pred.program.graph_module.code
     report[name] = {
         "load_s": load_s,
         "launches_per_call": launches,
+        "compared_call_replays": replays,
         "served_chips_per_s": x.shape[0] * args["calls"] / seconds,
         "graph_ops": pred.meta["ops"],
         "graph_calls_na2d": code.count("cultionet_tpu_torch.na2d"),
@@ -2393,7 +2405,9 @@ def phase_export(fit_result: dict, workdir) -> None:
     on a seeded int16 batch must be within 1e-5 (fp32) and 2e-2 (bf16) of
     the in-process predict step's on the same batch, both computed with
     cuDNN's deterministic algorithms: with its defaults two calls of the
-    same fp32 step differ by up to about 1e-5 (recorded). Served chips/s of
+    same fp32 step differ by up to about 1e-5 (recorded). The compared
+    served call, and the call its launches are counted on, must be one
+    replay of the program's CUDA graph. Served chips/s of
     ``call_on_device`` on device-resident inputs beside the in-process
     step's (cuDNN's defaults), the export's seconds and the artifact's
     size."""
@@ -2467,6 +2481,9 @@ def phase_export(fit_result: dict, workdir) -> None:
             want["layer_norm_rows"] = 7
         if report["launches_per_call"] != want:
             failures.append(f"{name}: a call launched {report['launches_per_call']}")
+        if report["compared_call_replays"] != 1:
+            failures.append(f"{name}: the compared call made "
+                            f"{report['compared_call_replays']} graph replays")
         if (
             report["graph_calls_na2d"] != 3
             or report["graph_calls_temporal"] != want.get("temporal_fwd", 0)
@@ -3587,13 +3604,16 @@ def remat_peak_memory() -> dict:
 
 def latlon_export(model, workdir) -> dict:
     """O6: a bf16 artifact of the trained state at batch 8 x 140^2; served
-    in process, with cuDNN's deterministic algorithms, it equals the eager
-    serve program (0.0); two coordinate batches give different outputs."""
+    in process, with cuDNN's deterministic algorithms, each compared call
+    one replay of its CUDA graph, it equals the eager serve program (0.0);
+    two coordinate batches give different outputs."""
     from cultionet_tpu_torch.export import (
+        WARMUP,
         build_serve_fn,
         export_state,
         load_predictor,
     )
+    from cultionet_tpu_torch.utils import profiling
 
     out = workdir / "model_options" / "latlon_bf16.cnx"
     start = time.perf_counter()
@@ -3610,12 +3630,18 @@ def latlon_export(model, workdir) -> dict:
         )
     ).cuda()
     bands = ("distance", "edge", "crop")
-    outputs = []
+    outputs, replays = [], []
     torch.backends.cudnn.deterministic = True
     try:
+        # The warm-ups and the capture of the program's CUDA graph: each
+        # compared call replays it.
+        for _ in range(WARMUP + 1):
+            served.call_on_device(wire, *option_coords(0))
         for which in (0, 1):
             lat, lon = option_coords(which)
+            before = profiling.COUNTS["graph_replays"]
             got = served.call_on_device(wire, lat, lon)
+            replays.append(profiling.COUNTS["graph_replays"] - before)
             with torch.inference_mode():
                 want = serve(wire, lat, lon)
             err = max((g - w).abs().max().item() for g, w in zip(got, want))
@@ -3628,15 +3654,16 @@ def latlon_export(model, workdir) -> dict:
         for a, b in zip(outputs[0][0], outputs[1][0])
     )
     require(
-        errors == [0.0, 0.0] and coords_effect > 1e-4
+        errors == [0.0, 0.0] and coords_effect > 1e-4 and replays == [1, 1]
         and all(v.dtype == torch.float32 for v in outputs[0][0]),
         f"model_options O6: served vs in-process {errors}, coordinates "
-        f"moved the outputs by {coords_effect}",
+        f"moved the outputs by {coords_effect}, graph replays {replays}",
     )
     return {
         "export_s": export_s,
         "artifact_bytes": out.stat().st_size,
         "served_vs_inprocess_max_abs": errors,
+        "compared_call_replays": replays,
         "coordinate_batches_max_abs_diff": coords_effect,
         "outputs": list(bands),
     }

@@ -28,12 +28,18 @@ The artifact is one zip file (``.cnx``): ``program.pt2``
 (``torch.export.save``) and ``meta.json`` with the JAX manifest's keys.
 ``export_predictor`` / ``load_predictor`` are the file-level API; the
 command line exposes them as ``export``.
+
+A loaded card artifact called on inputs of its fixed geometry replays its
+program as one CUDA graph (``ExportedPredictor.call_on_device``,
+``eager_reason``): the host then launches one graph a call where the
+exported module dispatches its operators one by one.
 """
 
 import copy
 import datetime
 import io
 import json
+import threading
 import typing as T
 import zipfile
 from pathlib import Path
@@ -41,6 +47,7 @@ from pathlib import Path
 import numpy as np
 import torch
 from torch import nn
+from torch.export.passes import move_to_device_pass
 
 from .data.batch import dequantize
 from .data.constant import SCALE_FACTOR
@@ -48,8 +55,10 @@ from .enums import InferenceNames
 from .ops import layer_norm as _layer_norm_ops  # noqa: F401  (the LayerNorm op)
 from .ops import natten as _natten_ops  # noqa: F401  (registers the NA op)
 from .ops import temporal as _temporal_ops  # noqa: F401  (the temporal op)
+from .ops import flags
 from .ops.flags import cuda_natten_enabled, cuda_temporal_enabled
 from .train.precision import resolve_dtype
+from .utils import profiling
 from .utils.device import resolve_device
 from .utils.logging import set_color_logger
 from .utils.profiling import span, to_device, to_host
@@ -75,6 +84,10 @@ OUTPUT_NAMES = (
     str(InferenceNames.EDGE),
     str(InferenceNames.CROP),
 )
+
+# Eager calls on a side stream before a capture, as train/graphed.py:
+# cuDNN's algorithm choice and lazy kernel set-up happen outside it.
+WARMUP = 2
 
 
 class ServeProgram(nn.Module):
@@ -333,17 +346,77 @@ def export_predictor(
     )
 
 
+def eager_reason(meta: dict, x, lat, lon) -> T.Optional[str]:
+    """Why a call of the artifact described by ``meta`` on ``(x, lat,
+    lon)`` runs its program eagerly; None where it can replay a CUDA graph:
+    a card artifact, the three inputs on one CUDA device, and each input's
+    shape and dtype those of ``meta["inputs"]`` (the artifact's fixed
+    geometry). Inputs on another card than the program's weights pass, and
+    the eager warm-up calls raise for them as the module does."""
+    if meta["platforms"][0] != "cuda":
+        return "not a card artifact"
+    inputs = {"x": x, "lat": lat, "lon": lon}
+    if any(v.device.type != "cuda" or v.device != x.device
+           for v in inputs.values()):
+        return "the inputs are not on one card"
+    for name, value in inputs.items():
+        spec = meta["inputs"][name]
+        if (list(value.shape) != list(spec["shape"])
+                or value.dtype != getattr(torch, spec["dtype"])):
+            return f"{name} is not the artifact's {spec['dtype']} {spec['shape']}"
+    return None
+
+
+def _backend_settings() -> tuple:
+    """The settings under which cuDNN and cuBLAS pick their algorithms when
+    a program runs: a graph keeps those of its capture."""
+    cudnn = torch.backends.cudnn
+    return (cudnn.enabled, cudnn.benchmark, cudnn.deterministic,
+            cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32)
+
+
 class ExportedPredictor:
     """A loaded serving artifact: ``pred(x, lat, lon) -> dict`` of fp32
     numpy rasters. Needs only torch and the op registrations: no model code
-    of this package runs."""
+    of this package runs.
+
+    Where ``eager_reason`` finds nothing against it, ``call_on_device``
+    runs the program as a CUDA graph: per key (the inputs' card and the
+    backend settings) the first ``WARMUP`` calls run eagerly on a side
+    stream, the next captures the program on static copies of the inputs
+    and replays it, and every later call copies its inputs into them,
+    replays and returns clones of the outputs (the next replay overwrites
+    the graph's). Each call counts its kernel launches
+    (``ops/flags.py::launch_tables``) once, as an eager call does, and
+    the counters ``graph_captures`` and ``graph_replays``. A lock holds
+    each graphed call's launches whole, and a replay waits on the card for
+    the last call's clones: callers may share the predictor between
+    threads and streams. Every other call runs the module eagerly.
+    ``call_on_device`` returns without waiting for the card; ``__call__``
+    waits inside its span ``serve.program``."""
 
     def __init__(self, program: torch.export.ExportedProgram, meta: dict):
-        self.program = program
         self.meta = meta
         self.device = torch.device(meta["platforms"][0])
         self.batch_size = int(meta["inputs"]["x"]["shape"][0])
+        if self.device.type == "cuda":
+            # The program's host constants (the resize matrices, made from
+            # numpy while it was traced) go to its card once: else every
+            # call copies them from pageable memory, which a CUDA graph
+            # cannot capture. Their values and the ops on them stay.
+            card = next(iter(program.state_dict.values())).device
+            program = move_to_device_pass(program, {"cpu": str(card)})
+        self.program = program
         self._module = program.module()
+        self._lock = threading.Lock()
+        self._key: T.Optional[tuple] = None
+        self._warm = 0
+        self._graph = None
+        self._static: T.Tuple[torch.Tensor, ...] = ()
+        self._outputs: T.Tuple[torch.Tensor, ...] = ()
+        self._launches: T.List[T.Dict[str, int]] = []
+        self._stream = None
+        self._done = None
 
     def __call__(
         self,
@@ -375,6 +448,10 @@ class ExportedPredictor:
                 ]
             with span("serve.program"):
                 outs = self.call_on_device(*inputs)
+                if self.device.type == "cuda":
+                    # The span ends on the program's completion: else the
+                    # readback's blocking copy holds the card's time.
+                    torch.cuda.current_stream(self.device).synchronize()
             with span("serve.readback"):
                 return {
                     name: to_host(val).numpy()
@@ -386,7 +463,85 @@ class ExportedPredictor:
         output tuple as it is (no host copy, no zero-fill): the serving hot
         path, and the call benchmarks time."""
         with torch.inference_mode():
-            return self._module(x, lat, lon)
+            if eager_reason(self.meta, x, lat, lon) is not None:
+                return self._module(x, lat, lon)
+            with self._lock:
+                return self._graphed((x, lat, lon))
+
+    def plan(self, key: tuple) -> str:
+        """What a graphed call with ``key`` does: "eager" (a warm-up),
+        "capture" or "replay". A new key drops the graph."""
+        if key != self._key:
+            # The graph's static tensors go with it (they hold its memory).
+            self._key, self._warm, self._graph = key, 0, None
+            self._static, self._outputs, self._launches = (), (), []
+            self._stream = self._done = None
+        if self._warm < WARMUP:
+            return "eager"
+        return "replay" if self._graph is not None else "capture"
+
+    def _graphed(self, inputs: T.Tuple[torch.Tensor, ...]):
+        action = self.plan((inputs[0].device, _backend_settings()))
+        if action == "eager":
+            outs = self._on_side_stream(inputs)
+            # Counted once it ran: a call the module rejects never
+            # brings the capture nearer.
+            self._warm += 1
+            return outs
+        outs = self._capture(inputs) if action == "capture" else self._replay(inputs)
+        profiling.add_count("graph_replays")
+        return outs
+
+    def _on_side_stream(self, inputs):
+        if self._stream is None:
+            self._stream = torch.cuda.Stream(inputs[0].device)
+        side, main = self._stream, torch.cuda.current_stream()
+        side.wait_stream(main)
+        with torch.cuda.stream(side):
+            outs = self._module(*inputs)
+        main.wait_stream(side)
+        return outs
+
+    def _capture(self, inputs):
+        self._static = tuple(value.clone() for value in inputs)
+        before = [dict(table) for table in flags.launch_tables()]
+        graph = torch.cuda.CUDAGraph()
+        # Capture starts with a device synchronize: the clones are done.
+        # "thread_local": other threads' copies and waits, such as a
+        # concurrent ``__call__``'s, leave this capture valid.
+        with torch.cuda.graph(graph, stream=self._stream,
+                              capture_error_mode="thread_local"):
+            self._outputs = tuple(self._module(*self._static))
+        self._launches = [
+            {k: table[k] - old.get(k, 0) for k in table if table[k] != old.get(k, 0)}
+            for table, old in zip(flags.launch_tables(), before)
+        ]
+        self._graph = graph
+        profiling.add_count("graph_captures")
+        # The capture ran the module's Python (the launch tables moved)
+        # and recorded its launches; the replay runs them.
+        graph.replay()
+        return self._clones()
+
+    def _replay(self, inputs):
+        # The last call's clones are done before the static tensors are
+        # written, on whichever stream that call ran.
+        torch.cuda.current_stream().wait_event(self._done)
+        for static, value in zip(self._static, inputs):
+            static.copy_(value)
+        self._graph.replay()
+        for table, moved in zip(flags.launch_tables(), self._launches):
+            for name, n in moved.items():
+                table[name] += n
+        return self._clones()
+
+    def _clones(self):
+        """The outputs as the caller keeps them: the next replay
+        overwrites the graph's."""
+        outs = tuple(out.clone() for out in self._outputs)
+        self._done = torch.cuda.Event()
+        self._done.record()
+        return outs
 
 
 def load_predictor(path: T.Union[str, Path]) -> ExportedPredictor:

@@ -18,8 +18,10 @@ cultionet_tpu/utils/profiling.py::profile_trace, on ``torch.profiler``).
   serve paths (``h2d_bytes``, ``d2h_bytes``, and ``blocking_copies``, those
   made with ``non_blocking=False``, each of which makes the host wait for
   the stream), always on; ``to_device`` and ``to_host`` copy and count.
-  ``graph_captures`` and ``graph_replays`` count the train step's CUDA
-  graph captures and replays (``train/graphed.py``, ``add_count``).
+  ``graph_captures`` and ``graph_replays`` count the CUDA graph captures
+  and replays of the train step (``train/graphed.py``) and of the served
+  program (``export.py::ExportedPredictor.call_on_device``), by
+  ``add_count``.
   ``utae_date_images`` and ``utae_pad_images`` count the date images of
   the dated batches the loaders deliver and the padding among them
   (``data/batch.py::count_date_images``). ``counters()`` adds every

@@ -5,8 +5,12 @@ that concerns the artifact itself (the log transform and the
 ``export_predictor`` gates are in ``test_torch_export_gates.py``). Also:
 a JAX artifact refused by the port's loader, the registered attention
 ops in the exported graph, their fake and real implementations agreeing
-(``torch.library.opcheck``), and a fresh process that loads and calls an
-artifact without importing the port's model code.
+(``torch.library.opcheck``), a fresh process that loads and calls an
+artifact without importing the port's model code, and the served CUDA
+graph's rule on the CPU: a CPU artifact never captures, the engagement
+rule keeps every call it cannot replay eager, and the plan warms up,
+captures, replays and starts over under another key (the graph itself
+runs only on a card: ``tests/test_torch_serve_graph_card.py``).
 
 Tiny model: in_time 5, hidden 4, natten, dilations [1, 2], 16 x 16 chips,
 batch 2, fp32. An export takes about 5 s on the CPU.
@@ -18,6 +22,7 @@ import sys
 import textwrap
 import zipfile
 from pathlib import Path
+from types import SimpleNamespace
 
 import jax.numpy as jnp
 import numpy as np
@@ -30,17 +35,20 @@ from cultionet_tpu.export import export_state as jax_export_state
 from cultionet_tpu.export import load_predictor as jax_load_predictor
 from cultionet_tpu.models import CultioNet as JaxCultioNet
 from cultionet_tpu.train import step as jax_step
+from cultionet_tpu_torch import export as export_module
 from cultionet_tpu_torch.export import (
     CLIP_MAX,
     CLIP_MIN,
     SERVE_ABI_VERSION,
     build_serve_fn,
+    eager_reason,
     export_state,
     load_predictor,
 )
 from cultionet_tpu_torch.models import CultioNet
 from cultionet_tpu_torch.ops.natten import na2d_inference
 from cultionet_tpu_torch.ops.temporal import temporal_inference
+from cultionet_tpu_torch.utils import profiling
 from cultionet_tpu_torch.utils.params import load_flax
 
 from torch_port_helpers import (
@@ -284,3 +292,134 @@ def test_card_export_refuses_plain_versions(weights, monkeypatch, tmp_path):
             weights[2], tmp_path / "x.cnx", in_time=IN_TIME, in_channels=3,
             batch_size=2, chip_size=16, device="cuda",
         )
+
+
+def test_cpu_artifact_calls_never_capture(artifact):
+    """A CPU artifact runs its module eagerly on every call, past the
+    warm-ups and the capture a card artifact would make: no capture, no
+    replay, and the outputs those of the module's own eager call."""
+    pred = load_predictor(artifact)
+    counts0 = profiling.counters()
+    for seed in range(5):
+        x = _wire(seed)
+        got = pred(x, LAT, LON)
+        on_device = pred.call_on_device(
+            torch.from_numpy(x), torch.from_numpy(LAT), torch.from_numpy(LON)
+        )
+        with torch.inference_mode():
+            want = pred._module(
+                torch.from_numpy(x), torch.from_numpy(LAT), torch.from_numpy(LON)
+            )
+        for name, w, d in zip(("distance", "edge", "crop"), want, on_device):
+            np.testing.assert_array_equal(got[name], w.numpy(), err_msg=name)
+            assert torch.equal(d, w), name
+    counts = profiling.counters()
+    assert counts["graph_captures"] == counts0["graph_captures"]
+    assert counts["graph_replays"] == counts0["graph_replays"]
+    assert pred._key is None and pred._graph is None
+
+
+def _card_call(**changed):
+    """Stand-ins for (x, lat, lon) of a batch-2 card artifact: the device,
+    shape and dtype the rule reads, each as the artifact's unless
+    ``changed`` names it (``x_device``, ``lat_shape``, ...)."""
+    card = torch.device("cuda", 0)
+    specs = {"x": (X_SHAPE, torch.int16), "lat": ((2,), torch.float32),
+             "lon": ((2,), torch.float32)}
+    return [
+        SimpleNamespace(
+            device=changed.get(f"{name}_device", card),
+            shape=torch.Size(changed.get(f"{name}_shape", shape)),
+            dtype=changed.get(f"{name}_dtype", dtype),
+        )
+        for name, (shape, dtype) in specs.items()
+    ]
+
+
+@pytest.mark.parametrize(
+    "platform,changed,reason",
+    [
+        ("cuda", {}, None),
+        ("cpu", {}, "not a card artifact"),
+        ("cuda", {"x_device": torch.device("cpu")}, "not on one card"),
+        ("cuda", {"lon_device": torch.device("cpu")}, "not on one card"),
+        ("cuda", {"lat_device": torch.device("cuda", 1)}, "not on one card"),
+        ("cuda", {"x_shape": (1, *X_SHAPE[1:])}, "x is not"),
+        ("cuda", {"x_shape": (2, IN_TIME, 16, 18, 3)}, "x is not"),
+        ("cuda", {"lat_shape": (3,)}, "lat is not"),
+        ("cuda", {"x_dtype": torch.float32}, "x is not"),
+        ("cuda", {"lon_dtype": torch.float64}, "lon is not"),
+    ],
+)
+def test_engagement_rule_keeps_each_excluded_call_eager(artifact, platform, changed, reason):
+    with zipfile.ZipFile(artifact) as zf:
+        meta = json.loads(zf.read("meta.json").decode())
+    meta["platforms"] = [platform]
+    got = eager_reason(meta, *_card_call(**changed))
+    if reason is None:
+        assert got is None
+    else:
+        assert got is not None and reason in got
+
+
+def test_plan_warms_up_captures_replays_and_starts_over(artifact, monkeypatch):
+    """``_graphed`` follows its plan: ``WARMUP`` eager calls that ran, the
+    capture, then replays, each of the last two counted as one replay;
+    another card or other backend settings drop the graph and warm up
+    again. The card's work is stubbed here; the card test runs it."""
+    pred = load_predictor(artifact)
+    actions = []
+
+    def eager(inputs):
+        actions.append("eager")
+        return "eager outputs"
+
+    def capture(inputs):
+        actions.append("capture")
+        pred._graph = object()  # what a capture leaves
+        return "clones"
+
+    def replay(inputs):
+        actions.append("replay")
+        return "clones"
+
+    monkeypatch.setattr(pred, "_on_side_stream", eager)
+    monkeypatch.setattr(pred, "_capture", capture)
+    monkeypatch.setattr(pred, "_replay", replay)
+    settings = export_module._backend_settings()
+    monkeypatch.setattr(export_module, "_backend_settings", lambda: settings)
+    inputs = tuple(torch.from_numpy(v) for v in (_wire(0), LAT, LON))
+
+    def calls(n):
+        del actions[:]
+        replays = profiling.COUNTS["graph_replays"]
+        outs = [pred._graphed(inputs) for _ in range(n)]
+        return actions[:], outs, profiling.COUNTS["graph_replays"] - replays
+
+    assert export_module.WARMUP == 2
+    assert calls(5) == (
+        ["eager", "eager", "capture", "replay", "replay"],
+        ["eager outputs"] * 2 + ["clones"] * 3, 3,
+    )
+    # A warm-up the module rejected (it raised before ``_warm`` moved)
+    # brings the capture no nearer.
+    def rejected(inputs):
+        raise RuntimeError("the module refused the inputs")
+
+    monkeypatch.setattr(pred, "_on_side_stream", rejected)
+    on_card_1 = (SimpleNamespace(device=torch.device("cuda", 1)),) + inputs[1:]
+    for _ in range(3):
+        with pytest.raises(RuntimeError):
+            pred._graphed(on_card_1)
+    assert pred._warm == 0 and pred._graph is None
+    monkeypatch.setattr(pred, "_on_side_stream", eager)
+    assert calls(1)[0] == ["eager"]  # back on the first card: a new key
+    settings = settings[:2] + (not settings[2],) + settings[3:]
+    assert calls(4)[0] == ["eager", "eager", "capture", "replay"]
+
+
+def test_backend_settings_follow_the_flags(monkeypatch):
+    settings = export_module._backend_settings()
+    monkeypatch.setattr(torch.backends.cudnn, "deterministic",
+                        not torch.backends.cudnn.deterministic)
+    assert export_module._backend_settings() != settings
