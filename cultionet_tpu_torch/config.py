@@ -6,8 +6,9 @@ configuration written for one package reads in the other. Every field
 runs: the model's (``remat`` included), the data path's
 (``use_chipstore``, ``device_augment``, ``device_augment_noise``) and the
 devices' (``devices``, ``fsdp``, ``fsdp_min_size``: ``train/fit.py``).
-``model_type="UTAE"`` (a model of the port alone, ``models/utae.py``) takes
-``in_time`` and ``hidden_channels``, and the published widths.
+``model_type="UTAE"`` and ``"TSViT"`` (models of the port alone,
+``models/utae.py``, ``models/tsvit.py``) take ``in_time`` and
+``hidden_channels``, and the published widths.
 """
 
 import dataclasses
@@ -114,8 +115,9 @@ class CultionetParams:
     def get_model_kwargs(self) -> dict:
         """The JAX model's keyword arguments (``in_channels`` is separate:
         the JAX model infers it from its input, the port's takes it). A
-        U-TAE's are its own (``models/utae.py::UTAE``)."""
-        if self.model_type == ModelTypes.UTAE:
+        U-TAE's and TSViT's are their own (``models/utae.py::UTAE``,
+        ``models/tsvit.py::TSViT``)."""
+        if self.model_type in (ModelTypes.UTAE, ModelTypes.TSVIT):
             return dict(
                 model_type=self.model_type,
                 in_time=self.in_time,

@@ -57,6 +57,7 @@ class LossTypes(StrEnum):
     CENTERLINE_DICE = "CLDiceLoss"
     CLASS_BALANCED_MSE = "ClassBalancedMSELoss"
     LOG_COSH = "LogCoshLoss"
+    MASKED_CROSS_ENTROPY = "MaskedCrossEntropyLoss"
     FOCAL_TVERSKY = "FocalTverskyLoss"
     TANIMOTO_COMPLEMENT = "TanimotoComplementLoss"
     TANIMOTO = "TanimotoDistLoss"
@@ -74,6 +75,7 @@ class ModelNames(StrEnum):
 class ModelTypes(StrEnum):
     TOWERUNET = "TowerUNet"
     UTAE = "UTAE"
+    TSVIT = "TSViT"
 
 
 class ResBlockTypes(StrEnum):

@@ -454,3 +454,19 @@ class CrossEntropyLoss:
         logits = logits.permute(0, 3, 1, 2)
         logits = logits.to(torch.promote_types(logits.dtype, torch.float32))
         return F.cross_entropy(logits, target, weight=weight.to(logits.dtype))
+
+
+class MaskedCrossEntropyLoss:
+    """Cross-entropy of channel-last logits (B, H, W, K) against (B, H, W)
+    labels, the mean over the pixels whose label is one of the K classes:
+    a label outside [0, K) (void, -1 unlabeled) has no logit and is left
+    out (TSViT's ``masked_cross_entropy``, whose 19 classes leave out
+    PASTIS's void, 19)."""
+
+    def __call__(self, logits: Tensor, y: Tensor) -> Tensor:
+        k = logits.shape[-1]
+        y = y.to(torch.int64)
+        logits = logits.permute(0, 3, 1, 2)
+        logits = logits.to(torch.promote_types(logits.dtype, torch.float32))
+        # -100 is ``F.cross_entropy``'s ``ignore_index``.
+        return F.cross_entropy(logits, torch.where((y >= 0) & (y < k), y, -100))

@@ -13,6 +13,7 @@ from torch import nn
 
 from ..enums import AttentionTypes, InferenceNames, ModelTypes, ResBlockTypes
 from .tower_unet import TowerUNet
+from .tsvit import TSViT
 from .utae import UTAE
 
 Tensor = torch.Tensor
@@ -21,9 +22,11 @@ Tensor = torch.Tensor
 def create_model(in_channels: int, **kwargs) -> nn.Module:
     """The model of ``kwargs["model_type"]`` (``CultionetParams.
     get_model_kwargs`` or a checkpoint's hyperparams): a ``UTAE`` for
-    "UTAE", else a ``CultioNet``."""
+    "UTAE", a ``TSViT`` for "TSViT", else a ``CultioNet``."""
     if kwargs.get("model_type") == ModelTypes.UTAE:
         return UTAE(in_channels=in_channels, **kwargs)
+    if kwargs.get("model_type") == ModelTypes.TSVIT:
+        return TSViT(in_channels=in_channels, **kwargs)
     return CultioNet(in_channels=in_channels, **kwargs)
 
 

@@ -32,9 +32,11 @@ z-scores on the device; host augmenters do not run, and validation stays
 on the host loader.
 
 Every model option of the JAX configuration builds
-(``model_from_kwargs``), ``remat`` included. ``model_type="UTAE"`` trains
-the port's U-TAE (``models/utae.py``) on dated chips under
-``CrossEntropyLoss``; its validation reports the loss, the overall
+(``model_from_kwargs``), ``remat`` included. ``model_type="UTAE"`` and
+``"TSViT"`` train the port's U-TAE (``models/utae.py``) and TSViT
+(``models/tsvit.py``) on dated chips under a class loss
+(``CrossEntropyLoss``, U-TAE's, or ``MaskedCrossEntropyLoss``, TSViT's);
+its validation reports the loss, the overall
 accuracy (``voa``) and the mean IoU (``vmiou``) of the split's confusion
 matrix, and ``val_score`` is 1 - mIoU.
 
@@ -74,7 +76,7 @@ from ..config import CultionetParams
 from ..data.chipstore import ChipstoreLoader
 from ..data.device_cache import DeviceChipCache, gather_batch
 from ..data.loader import ChipLoader, process_local_selection
-from ..enums import LossTypes, ModelTypes
+from ..enums import ModelTypes
 from ..models import CultioNet, create_model
 from ..nn.dropout import dropout_rng
 from ..parallel.distributed import assert_same_across_hosts, launch
@@ -92,6 +94,7 @@ from ..parallel.sharded import make_sharded_eval_step, make_sharded_train_step
 from ..utils.device import resolve_device
 from ..utils.profiling import span
 from .checkpoint import Checkpointer
+from .loss_registry import CLASS_LOSSES
 from .lr_finder import lr_find
 from .optim import build_momentum_schedule, build_optimizer, build_schedule
 from .precision import cast_floating, resolve_dtype
@@ -127,7 +130,7 @@ class FitResult:
 def model_from_kwargs(in_channels: int, kwargs: T.Mapping) -> torch.nn.Module:
     """The port's model from the model's keyword arguments
     (``CultionetParams.get_model_kwargs`` or a checkpoint's hyperparams):
-    a CultioNet, or a U-TAE for ``model_type="UTAE"``."""
+    a CultioNet, a U-TAE for ``model_type="UTAE"``, a TSViT for "TSViT"."""
     return create_model(in_channels, **kwargs)
 
 
@@ -408,14 +411,16 @@ def fit(
     for ``device="cpu"``) and returns rank 0's result.
     """
     device = resolve_device(device)
-    if params.model_type == ModelTypes.UTAE:
-        if params.loss_name != LossTypes.CROSS_ENTROPY:
+    if params.model_type in (ModelTypes.UTAE, ModelTypes.TSVIT):
+        if params.loss_name not in CLASS_LOSSES:
             raise ValueError(
-                f"a U-TAE trains under loss_name={LossTypes.CROSS_ENTROPY!r}, "
-                f"not {params.loss_name!r}"
+                f"a {params.model_type} trains under a loss_name of "
+                f"{[str(n) for n in CLASS_LOSSES]}, not {params.loss_name!r}"
             )
         if params.devices > 1 or params.auto_lr_find:
-            raise ValueError("a U-TAE trains on one device, without the LR sweep")
+            raise ValueError(
+                f"a {params.model_type} trains on one device, without the LR sweep"
+            )
     params.check_checkpoint()
 
     dataset = params.dataset

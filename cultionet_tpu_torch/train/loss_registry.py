@@ -11,10 +11,16 @@ from ..losses import (
     CrossEntropyLoss,
     FocalTverskyLoss,
     LogCoshLoss,
+    MaskedCrossEntropyLoss,
     TanimotoComplementLoss,
     TanimotoDistLoss,
     TverskyLoss,
 )
+
+
+# The losses of class logits alone (``crop_type`` against ``y``): U-TAE's,
+# whose last logit is void, and TSViT's, which has no void logit.
+CLASS_LOSSES = (LossTypes.CROSS_ENTROPY, LossTypes.MASKED_CROSS_ENTROPY)
 
 
 def build_loss_dict() -> T.Dict[str, T.Dict[str, T.Callable]]:
@@ -24,6 +30,9 @@ def build_loss_dict() -> T.Dict[str, T.Dict[str, T.Callable]]:
         },
         LossTypes.CROSS_ENTROPY: {
             "classification": CrossEntropyLoss(),
+        },
+        LossTypes.MASKED_CROSS_ENTROPY: {
+            "classification": MaskedCrossEntropyLoss(),
         },
         LossTypes.CLASS_BALANCED_MSE: {
             "classification": ClassBalancedMSELoss(),

@@ -15,9 +15,10 @@ and update the state in place:
 - ``make_hbm_train_step``: the same step over a device-resident split
   (``data/device_cache.py``), from a (B,) index vector.
 - ``make_eval_step``: the loss, the metric suite and the composite score
-  (for class logits under ``CrossEntropyLoss``, U-TAE's objective: the
-  loss and the confusion matrix, whose overall accuracy and mean IoU
-  ``fit`` reports over the validation split).
+  (for class logits under ``CrossEntropyLoss``, U-TAE's objective, or
+  ``MaskedCrossEntropyLoss``, TSViT's: the loss and the confusion matrix,
+  whose overall accuracy and mean IoU ``fit`` reports over the validation
+  split).
 - ``make_predict_step``: the model's outputs for a batch of windows.
 """
 
@@ -41,7 +42,7 @@ from ..utils.device import resolve_device
 from ..utils.profiling import span, to_device
 from .graphed import GraphedStep
 from .labels import get_true_labels
-from .loss_registry import LOSS_DICT
+from .loss_registry import CLASS_LOSSES, LOSS_DICT
 from ..losses import class_targets
 from .metrics import (
     confusion_counts,
@@ -112,10 +113,10 @@ def calc_loss(
     edge_class: int = 2,
     class_weights: T.Optional[T.Dict[str, T.Any]] = None,
 ) -> T.Tuple[Tensor, T.Dict[str, Tensor]]:
-    """Multi-task loss: distance + edge + crop, equally weighted; under
-    ``CrossEntropyLoss`` the class-logit objective alone
-    (``losses.CrossEntropyLoss``: the ``crop_type`` logits against ``y``,
-    the void class weighing 0).
+    """Multi-task loss: distance + edge + crop, equally weighted; under a
+    class loss (``CLASS_LOSSES``) the class-logit objective alone: the
+    ``crop_type`` logits against ``y``, the void class weighing 0
+    (``losses.CrossEntropyLoss``) or left out (``MaskedCrossEntropyLoss``).
 
     ``class_weights`` (from ``class_weights_from_counts``) weights the
     classification pixels by class: the set losses multiply inputs and
@@ -123,7 +124,7 @@ def calc_loss(
     weighted sums.
     """
     losses = LOSS_DICT[loss_name]
-    if loss_name == LossTypes.CROSS_ENTROPY:
+    if loss_name in CLASS_LOSSES:
         return losses["classification"](predictions[InferenceNames.CROP_TYPE], batch.y), {}
     combined = LOSS_DICT[LossTypes.TANIMOTO_COMBINED]
     reg_loss = losses.get("regression") or combined["regression"]
@@ -364,15 +365,20 @@ def evaluate_predictions(
     edge_class: int = 2,
     class_weights: T.Optional[T.Dict[str, T.Any]] = None,
 ) -> T.Dict[str, Tensor]:
-    """Loss, metric suite and composite score ``score``; under
-    ``CrossEntropyLoss`` the loss and ``confusion``, the (K, K) confusion
-    matrix of the predicted classes (rows the true class)."""
-    if loss_name == LossTypes.CROSS_ENTROPY:
+    """Loss, metric suite and composite score ``score``; under a class
+    loss (``CLASS_LOSSES``) the loss and ``confusion``, the confusion
+    matrix of the predicted classes (rows the true class) whose last row
+    and column are void's: (K, K) under ``CrossEntropyLoss``, whose last
+    logit is void, (K + 1, K + 1) under ``MaskedCrossEntropyLoss``, void's
+    pixels in the added row."""
+    if loss_name in CLASS_LOSSES:
         logits = predictions[InferenceNames.CROP_TYPE]
         k = logits.shape[-1]
         loss, _ = calc_loss(predictions, batch, loss_name=loss_name)
+        classes = k if loss_name == LossTypes.CROSS_ENTROPY else k + 1
         confusion = confusion_counts(
-            logits.argmax(-1), class_targets(batch.y, k, -1), num_classes=k
+            logits.argmax(-1), class_targets(batch.y, classes, -1),
+            num_classes=classes,
         )
         return {"loss": loss, "confusion": confusion}
     loss, report = calc_loss(

@@ -78,9 +78,9 @@ def run_jax_cli(argv):
         jax_cli.main()
 
 
-# Choices of the port alone (a model the JAX package lacks, and the
-# constant learning rate it trains with), by dest.
-PORT_CHOICES = {"model_type": ["UTAE"], "lr_scheduler": ["Constant"]}
+# Choices of the port alone (models the JAX package lacks, and the
+# constant learning rate U-TAE trains with), by dest.
+PORT_CHOICES = {"model_type": ["TSViT", "UTAE"], "lr_scheduler": ["Constant"]}
 
 
 def _with_port_choices(dest, choices):

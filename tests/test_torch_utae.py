@@ -214,6 +214,32 @@ def test_oa_and_miou_follow_the_published_meter():
     assert abs(float(got) - miou) < 1e-6 and abs(float(oa) - acc) < 1e-6
 
 
+def test_fewer_classes_keep_void_as_the_last_logit():
+    """A U-TAE whose head ends at K = 5 classes: under ``CrossEntropyLoss``
+    its last logit is void, whatever K, as U-TAE's ``ignore_index`` -1:
+    labels K - 1 and -1 weigh 0, every other class 1, and the confusion
+    matrix stays (K, K)."""
+    from cultionet_tpu_torch.train.step import evaluate_predictions
+
+    torch.manual_seed(0)
+    port = UTAE(in_channels=BANDS, out_conv=[32, 5])
+    port.eval()
+    x, dates, count, _ = dated_inputs()
+    y = torch.randint(-1, 5, (B, SIZE, SIZE), generator=torch.Generator().manual_seed(2))
+    with torch.no_grad():
+        outputs = port(x, dates=dates, date_count=count)
+    logits = outputs[InferenceNames.CROP_TYPE]
+    assert logits.shape[-1] == 5
+    loss, _ = calc_loss(outputs, Batch(x=x, y=y), loss_name=LossTypes.CROSS_ENTROPY)
+    per_pixel = torch.nn.functional.cross_entropy(
+        logits.permute(0, 3, 1, 2), y.clamp(min=0).long(), reduction="none")
+    keep = (y >= 0) & (y < 4)
+    torch.testing.assert_close(loss, per_pixel[keep].mean(), rtol=1e-6, atol=0)
+    out = evaluate_predictions(outputs, Batch(x=x, y=y), loss_name=LossTypes.CROSS_ENTROPY)
+    assert out["confusion"].shape == (5, 5)
+    assert float(out["confusion"][4].sum()) == float(((y == 4) | (y < 0)).sum())
+
+
 def test_constant_rate_and_adam_follow_the_reference():
     schedule = build_schedule("Constant", 1e-3, epochs=100, steps_per_epoch=128)
     assert {schedule(s) for s in (0, 1, 5000, 12800, 10**6)} == {1e-3}
