@@ -48,6 +48,14 @@ on the first phase that fails:
    output's largest magnitude); the launch plan the library chose;
    device times beside the byte bound and ``F.layer_norm``'s (the plain
    version and the yardstick: one call computes the same function).
+   layer_norm_train: its training forward (with each row's mean and rstd)
+   and backward (``layer_norm_bwd.cu``) at TSViT's rows (182,016 x 128
+   nine times a step, 43,776 x 128 ten times) and the transformer's train
+   rows (40,000 x 12 x 64 five times, 40,000 x 64, 1 x 1 x 64) in bf16:
+   the gradients against ``F.layer_norm``'s with autograd, and device
+   times beside the byte bound (forward: x read, y written; backward: x
+   and dy read, dx written) and PyTorch's own forward and backward
+   (``aten::native_layer_norm`` and ``native_layer_norm_backward``).
 7. kernel_check na_block_fwd: the fused NA block kernel (#7, one launch
    over coset tiles) against its plain version
    (``ops/na_block.py::na_block_plain``) at the decoder's three NA sites
@@ -91,8 +99,9 @@ on the first phase that fails:
     chips of 100x100, T=12, 3 bands: 3 warm-up steps, then 20 timed steps.
     Every loss finite, the last below the first, exactly 3 launches of
     na2d_fwd_drop and of na2d_bwd_drop per step (and 3 of temporal_fwd
-    and temporal_bwd for the transformer) and no others: no LayerNorm
-    kernel under a gradient.
+    and temporal_bwd, and 7 of the LayerNorm training forward and of its
+    backward, for the transformer) and no others: no eval LayerNorm kernel
+    under a gradient.
 13. train_parity(_transformer) (dropout 0): one fp32 step launches
     na2d_fwd and na2d_bwd 3 times each (and the temporal kernels 3 times
     each for the transformer); its loss and gradients with the kernels
@@ -1432,6 +1441,84 @@ def phase_layer_norm() -> dict:
     return summary
 
 
+LAYER_NORM_TRAIN_ROWS = [  # (model, call, shape, calls a train step)
+    ("tsvit", "temporal", (182_016, 128), 9),
+    ("tsvit", "spatial", (43_776, 128), 10),
+    ("transformer", "tokens", (40_000, 12, 64), 5),
+    ("transformer", "embedding", (40_000, 64), 1),
+    ("transformer", "pool_query", (1, 1, 64), 1),
+]
+
+
+def phase_layer_norm_train() -> dict:
+    """The LayerNorm training kernels in bf16 at the train steps' rows
+    (``LAYER_NORM_TRAIN_ROWS``): the gradients against ``F.layer_norm``'s
+    with autograd; device times of the forward with statistics and of the
+    backward beside their byte bounds and PyTorch's forward and backward.
+    Returns each model's sums a step."""
+    import torch.nn.functional as F
+
+    from cultionet_tpu_torch.ops import layer_norm_cuda
+
+    gen = torch.Generator(device="cuda").manual_seed(12)
+    dtype, eps = torch.bfloat16, 1e-5
+    steps: T.Dict[str, T.Dict[str, float]] = {}
+    for model, call, shape, calls in LAYER_NORM_TRAIN_ROWS:
+        width = shape[-1]
+        x = (torch.randn(shape, device="cuda", generator=gen) * 2 + 0.5).to(dtype)
+        w = (1 + 0.2 * torch.randn(width, device="cuda", generator=gen)).to(dtype)
+        b = (0.2 * torch.randn(width, device="cuda", generator=gen)).to(dtype)
+        dy = torch.randn(shape, device="cuda", generator=gen).to(dtype)
+        y, mean, rstd = layer_norm_cuda.launch_layer_norm_rows_train(x, w, b, eps)
+        got = layer_norm_cuda.launch_layer_norm_rows_bwd(x, dy, mean, rstd, w)
+        leaves = [t.detach().clone().requires_grad_() for t in (x, w, b)]
+        want = torch.autograd.grad(F.layer_norm(leaves[0], (width,), *leaves[1:], eps),
+                                   leaves, dy)
+        errs = {
+            name: [(a.float() - e.float()).abs().max().item(), layer_norm_tolerance(e, dtype)]
+            for name, a, e in zip(("dx", "dweight", "dbias"), got, want)
+        }
+        for name, (err, tol) in errs.items():
+            require(err <= tol, f"layer_norm_train {call} {name}: {err} > {tol}")
+        _, lib_mean, lib_rstd = torch.ops.aten.native_layer_norm(x, [width], w, b, eps)
+        mask = [True, True, True]
+        elems = x.numel() * x.element_size()
+        record = {
+            "phase": "layer_norm_train", "model": model, "call": call, "shape": list(shape),
+            "calls_a_step": calls, "errors": errs,
+            "plan": layer_norm_cuda.card_plan(dtype, x.numel() // width, width, x.device),
+            "bwd_plan": layer_norm_cuda.card_plan(dtype, x.numel() // width, width, x.device,
+                                                  backward=True),
+            "fwd_ms": device_ms(
+                lambda: layer_norm_cuda.launch_layer_norm_rows_train(x, w, b, eps)),
+            "bwd_ms": device_ms(
+                lambda: layer_norm_cuda.launch_layer_norm_rows_bwd(x, dy, mean, rstd, w)),
+            "library_fwd_ms": device_ms(
+                lambda: torch.ops.aten.native_layer_norm(x, [width], w, b, eps)),
+            "library_bwd_ms": device_ms(
+                lambda: torch.ops.aten.native_layer_norm_backward(
+                    dy, x, [width], lib_mean, lib_rstd, w, b, mask)),
+            "fwd_bound_ms": 2 * elems / HBM_BYTES_PER_S * 1e3,
+            "bwd_bound_ms": 3 * elems / HBM_BYTES_PER_S * 1e3,
+        }
+        record["fwd_share"] = record["fwd_bound_ms"] / record["fwd_ms"]
+        record["bwd_share"] = record["bwd_bound_ms"] / record["bwd_ms"]
+        emit(record)
+        step = steps.setdefault(model, {})
+        for key in ("fwd_ms", "bwd_ms", "library_fwd_ms", "library_bwd_ms",
+                    "fwd_bound_ms", "bwd_bound_ms"):
+            step[key] = step.get(key, 0.0) + calls * record[key]
+        del x, w, b, dy, y, mean, rstd, got, want, leaves
+    torch.cuda.empty_cache()
+    for model, step in steps.items():
+        step["share"] = (step["fwd_bound_ms"] + step["bwd_bound_ms"]) / (
+            step["fwd_ms"] + step["bwd_ms"])
+        step["library_share"] = (step["fwd_bound_ms"] + step["bwd_bound_ms"]) / (
+            step["library_fwd_ms"] + step["library_bwd_ms"])
+        emit({"phase": "layer_norm_train_step", "model": model, "dtype": "bfloat16", **step})
+    return steps
+
+
 def na_block_params_on_card(channels: int, generator):
     """The block's eight fp32 parameters with model-like scales: weights
     N(0, 1/C) (lecun-normal), LayerNorm scales N(1, 0.1), biases
@@ -1747,12 +1834,14 @@ def step_launches(temporal_encoder: str, dropout: bool) -> dict:
     """Kernel launches of one train step: the decoder's three NA calls
     (the dropout kernels when the step has dropout) forward and backward,
     and for the transformer its two layers' and its pooling's temporal
-    attention forward and backward."""
+    attention forward and backward, and its seven LayerNorms' training
+    forward and backward."""
     want = {name: 0 for name in read_launches()}
     suffix = "_drop" if dropout else ""
     want[f"na2d_fwd{suffix}"] = want[f"na2d_bwd{suffix}"] = 3
     if temporal_encoder == "transformer":
         want["temporal_fwd"] = want["temporal_bwd"] = 3
+        want["layer_norm_rows_train"] = want["layer_norm_rows_bwd"] = 7
     return want
 
 
@@ -4869,6 +4958,7 @@ def main() -> int:
     temporal_fwd = phase_temporal_fwd()
     temporal_bwd = phase_temporal_bwd()
     layer_norm = phase_layer_norm()
+    phase_layer_norm_train()
     na_block = phase_na_block_fwd()
     na_block_launches = phase_na_block_grad()
 

@@ -34,9 +34,12 @@ package has none.
 Each encoder layer is pre-norm: ``x + MHSA(LN(x))`` (qkv without bias, the
 heads side by side along the width, an out-projection with bias), then
 ``x + FF(LN(x))`` (``Linear(d, 4d)``, exact GELU, ``Linear(4d, d)``); a
-final LayerNorm closes each encoder. Dropout is 0, as published, and the
-port builds no other. Output: the class logits (B, H, W, K) under
-``InferenceNames.CROP_TYPE``. Parameter names are the published module's.
+final LayerNorm closes each encoder. Each LayerNorm module's parameters go
+through ``ops/layer_norm.py::layer_norm_rows`` (on the card the
+hand-written LayerNorm kernels, forward and backward). Dropout is 0, as
+published, and the port builds no other. Output: the class logits (B, H,
+W, K) under ``InferenceNames.CROP_TYPE``. Parameter names are the
+published module's.
 Spans ``tsvit.embed``, ``tsvit.temporal``, ``tsvit.spatial`` and
 ``tsvit.head`` (``utils/profiling.py``) mark the forward's phases.
 """
@@ -48,6 +51,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from ..enums import InferenceNames
+from ..ops.layer_norm import layer_norm_rows
 from ..ops.temporal import temporal_attention
 from ..utils.profiling import span
 from .utae import date_mask
@@ -81,6 +85,11 @@ def unpatchify(x: Tensor, b: int, k: int, h: int, w: int, patch: int) -> Tensor:
     return x.reshape(b, h * patch, w * patch, k)
 
 
+def layer_norm(m: nn.LayerNorm, x: Tensor) -> Tensor:
+    """``m(x)`` through ``layer_norm_rows``."""
+    return layer_norm_rows(x, m.weight, m.bias, m.eps)
+
+
 class PreNorm(nn.Module):
     def __init__(self, dim: int, fn: nn.Module):
         super().__init__()
@@ -88,7 +97,7 @@ class PreNorm(nn.Module):
         self.fn = fn
 
     def forward(self, x: Tensor) -> Tensor:
-        return self.fn(self.norm(x))
+        return self.fn(layer_norm(self.norm, x))
 
 
 class FeedForward(nn.Module):
@@ -150,7 +159,7 @@ class Transformer(nn.Module):
         for attn, ff in self.layers:
             x = attn(x) + x
             x = ff(x) + x
-        return self.norm(x)
+        return layer_norm(self.norm, x)
 
 
 class TSViT(nn.Module):
@@ -236,5 +245,6 @@ class TSViT(nn.Module):
             out = out.unflatten(0, (b, h * w)).transpose(1, 2).flatten(0, 1)
             out = self.space_transformer(out + self.space_pos_embedding)  # (B K, N, d)
         with span("tsvit.head"):
-            logits = unpatchify(self.mlp_head(out), b, k, h, w, p)
+            norm, project = self.mlp_head
+            logits = unpatchify(project(layer_norm(norm, out)), b, k, h, w, p)
         return {InferenceNames.CROP_TYPE: logits}

@@ -1,8 +1,9 @@
-"""LayerNorm over the last axis for inference: the plain version and the
-dispatching op. It replaces no TPU kernel (XLA fuses LayerNorm on the TPU);
-the transformer temporal front end (``models/temporal.py::
-TemporalTransformer``) normalises millions of narrow rows, one pixel's step
-each, where PyTorch's kernel leaves most of its threads idle.
+"""LayerNorm over the last axis: the plain version and the dispatching op.
+It replaces no TPU kernel (XLA fuses LayerNorm on the TPU); the transformer
+temporal front end (``models/temporal.py::TemporalTransformer``) normalises
+millions of narrow rows, one pixel's step each, and TSViT
+(``models/tsvit.py``) its token rows, where PyTorch's kernels leave most of
+their threads idle.
 
 - ``layer_norm_reference``: the plain version, ``F.layer_norm`` itself, the
   CPU path and the oracle of the CUDA kernel in ``layer_norm_cuda.py``.
@@ -11,9 +12,12 @@ each, where PyTorch's kernel leaves most of its threads idle.
   the hand-written kernel ``layer_norm_rows_fwd``, on a CPU tensor it
   computes the plain version; ``torch.export`` keeps it in a serving
   program.
-- ``layer_norm_rows``: what the model calls. Where a gradient is needed,
-  ``F.layer_norm`` (autograd, training and its CUDA graph); else the
-  registered op, which on a CUDA tensor always runs the kernel.
+- ``layer_norm_rows``: what the models call. Where a gradient is needed,
+  on CUDA tensors the training kernels (``layer_norm_cuda.
+  layer_norm_rows_cuda``: the forward with statistics and its backward,
+  which a CUDA graph of the step captures), on CPU tensors
+  ``F.layer_norm``; else the registered op, which on a CUDA tensor always
+  runs the kernel.
 """
 
 import torch
@@ -56,8 +60,13 @@ def _layer_norm_inference_fake(x, weight, bias, eps):
 
 def layer_norm_rows(x: Tensor, weight: Tensor, bias: Tensor, eps: float) -> Tensor:
     """LayerNorm of ``x`` over its last axis on whatever device it lies on:
-    ``F.layer_norm`` where autograd would record it, else the registered op
+    where autograd would record it, the training kernels on CUDA and
+    ``F.layer_norm`` on the CPU; else the registered op
     ``layer_norm_inference``."""
-    if grad_needed(x, weight, bias):
-        return layer_norm_reference(x, weight, bias, eps)
-    return layer_norm_inference(x, weight, bias, eps)
+    if not grad_needed(x, weight, bias):
+        return layer_norm_inference(x, weight, bias, eps)
+    if x.device.type == "cuda":
+        from .layer_norm_cuda import layer_norm_rows_cuda
+
+        return layer_norm_rows_cuda(x, weight, bias, eps)
+    return layer_norm_reference(x, weight, bias, eps)

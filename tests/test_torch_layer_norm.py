@@ -4,8 +4,10 @@ registered op's CPU body is ``F.layer_norm``; a gradient takes
 ``F.layer_norm`` and inference the registered op; TemporalTransformer's
 forward equals its ``nn.LayerNorm`` module path bit for bit with the same
 ``state_dict`` keys; the plan covers every row and chunk once; the wrapper
-refuses what the kernel does not take. The kernel itself runs in
-``test_torch_layer_norm_card.py``."""
+refuses what the kernel does not take; the backward's plan (the forward's
+tiles over half the resident blocks, one (2, width) fp32 partial a block)
+and the training wrappers' refusals. The kernels themselves run in
+``test_torch_layer_norm_card.py`` and ``test_torch_layer_norm_train_card.py``."""
 
 import numpy as np
 import pytest
@@ -260,3 +262,79 @@ def test_wrapper_refuses(case, error, match):
     with pytest.raises(error, match=match):
         lnc.launch_layer_norm_rows(x, w, b, 1e-5)
     assert lnc.LAUNCHES["layer_norm_rows"] == launches
+
+
+@pytest.mark.parametrize("dtype", list(DTYPES))
+def test_cpu_gradient_equals_f_layer_norm(dtype):
+    """On the CPU ``layer_norm_rows`` under a gradient is ``F.layer_norm``:
+    the output and the gradients of x, the weight and the bias, bit for
+    bit, in either type."""
+    x, w, b = _inputs(128, DTYPES[dtype])
+    g = torch.randn(x.shape, generator=torch.Generator().manual_seed(3)).to(x.dtype)
+    grads = []
+    for fn in (ln.layer_norm_rows, lambda *t: F.layer_norm(t[0], (128,), *t[1:])):
+        leaves = [t.clone().requires_grad_(True) for t in (x, w, b)]
+        out = fn(*leaves, 1e-5)
+        grads.append((out.detach(), *torch.autograd.grad(out, leaves, g)))
+    for got, want in zip(*grads):
+        torch.testing.assert_close(got, want, rtol=0, atol=0)
+
+
+@pytest.mark.parametrize(
+    "rows,width,itemsize", [(182_016, 128, 2), (43_776, 128, 2), (480_000, 64, 2),
+                            (182_016, 128, 4), (1, 64, 2), (701, 255, 4), (99, 2048, 2)],
+)
+def test_backward_plan_covers_every_row_once(rows, width, itemsize):
+    """The backward's plan is the forward's (so ``_walk`` covers every row
+    and chunk once) on half the resident blocks: its grid, the number of
+    (2, width) fp32 partials, is at most 132 x 2 blocks, or 132 from 2
+    chunks a lane."""
+    forward = lnc.launch_plan(rows, width, itemsize)
+    plan = lnc.launch_plan(rows, width, itemsize, backward=True)
+    keep = ("vec", "lanes", "cpl", "rows_per_thread", "block_rows", "tiles")
+    assert all(getattr(plan, k) == getattr(forward, k) for k in keep)
+    assert plan.blocks_per_sm == (2 if plan.cpl == 1 else 1)
+    assert plan.grid == max(1, min(plan.tiles, 132 * plan.blocks_per_sm))
+    covered, _ = _walk(plan)
+    assert np.array_equal(np.sort(covered), np.arange(rows))
+
+
+def test_backward_plan_of_tsvit_rows():
+    """TSViT's temporal rows at width 128 in bf16: 16 lanes of 16 bytes a
+    row, two rows a warp, 4 rows a thread; 264 blocks, so 264 x 2 x 128
+    fp32 partials (270,336 bytes)."""
+    plan = lnc.launch_plan(182_016, 128, 2, backward=True)
+    assert (plan.vec, plan.lanes, plan.cpl, plan.rows_per_thread) == (8, 16, 1, 4)
+    assert plan.block_rows == 64 and plan.tiles == 2844 and plan.grid == 264
+    assert plan.grid * 2 * 128 * 4 == 270_336
+
+
+@pytest.mark.parametrize("width,itemsize", [(257, 4), (1032, 4), (2056, 2), (0, 2)])
+def test_backward_plan_refuses_the_forwards_widths(width, itemsize):
+    with pytest.raises(ValueError, match=f"width {width}"):
+        lnc.launch_plan(10, width, itemsize, backward=True)
+
+
+@pytest.mark.parametrize(
+    "case,error,match",
+    [
+        ("width 257", ValueError, "width 257"),
+        ("float16", TypeError, "dtype"),
+        ("cpu tensors", ValueError, "CUDA device"),
+    ],
+)
+@pytest.mark.parametrize("wrapper", ["train", "bwd"])
+def test_training_wrappers_refuse(case, error, match, wrapper):
+    width = 257 if case == "width 257" else 64
+    x, w, b = _inputs(width, torch.float32)
+    if case == "float16":
+        x, w, b = x.half(), w.half(), b.half()
+    rows = x.numel() // width
+    stats = torch.zeros(rows), torch.ones(rows)
+    launches = dict(lnc.LAUNCHES)
+    with pytest.raises(error, match=match):
+        if wrapper == "train":
+            lnc.launch_layer_norm_rows_train(x, w, b, 1e-5)
+        else:
+            lnc.launch_layer_norm_rows_bwd(x, torch.ones_like(x), *stats, w)
+    assert lnc.LAUNCHES == launches

@@ -16,8 +16,9 @@ on the card:
 - a fp32 transformer forward at ``hidden_channels`` 36 (not a multiple of
   8) with the kernel against the same forward through ``F.layer_norm``;
 - ``LAUNCHES["layer_norm_rows"]``, and the counts of a root span around
-  the forward, advance by 7 a forward; under a gradient nothing
-  launches.
+  the forward, advance by 7 a forward; under a gradient it does not move,
+  and the training kernels (``test_torch_layer_norm_train_card.py``)
+  launch instead.
 
 Needs a CUDA card; skipped without one. This file imports neither JAX nor
 the JAX package, so it runs on a machine without them:
@@ -202,13 +203,17 @@ def test_transformer_forward_at_hidden_36(card, monkeypatch):
 
 
 @pytest.mark.card
-def test_gradient_launches_no_kernel(card):
-    x = torch.randn(1000, 64, device=card, requires_grad=True)
-    w = torch.ones(64, device=card)
-    b = torch.zeros(64, device=card)
-    launches = layer_norm_cuda.LAUNCHES["layer_norm_rows"]
+@pytest.mark.parametrize("width,dtype", [(64, torch.float32), (128, torch.bfloat16)])
+def test_gradient_launches_the_training_kernels(card, width, dtype):
+    """Under a gradient the eval kernel does not launch; the training
+    forward and the backward launch once each."""
+    x = torch.randn(1000, width, device=card).to(dtype).requires_grad_()
+    w = torch.ones(width, device=card, dtype=dtype)
+    b = torch.zeros(width, device=card, dtype=dtype)
+    launches = dict(layer_norm_cuda.LAUNCHES)
     out = layer_norm_rows(x, w, b, 1e-5)
-    out.sum().backward()
+    out.float().sum().backward()
     torch.cuda.synchronize()
-    assert layer_norm_cuda.LAUNCHES["layer_norm_rows"] == launches
+    moved = {k: n - launches[k] for k, n in layer_norm_cuda.LAUNCHES.items()}
+    assert moved == {"layer_norm_rows": 0, "layer_norm_rows_train": 1, "layer_norm_rows_bwd": 1}
     assert x.grad is not None

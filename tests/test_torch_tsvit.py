@@ -95,6 +95,37 @@ def test_parameter_names_match_the_reference():
     assert list(dict(ref.named_parameters())) == list(dict(port.named_parameters()))
 
 
+@pytest.mark.parametrize("grad", [True, False], ids=["train", "eval"])
+def test_every_layernorm_goes_through_layer_norm_rows(monkeypatch, grad):
+    """Each of the 2 x 2 + 1 LayerNorms of an encoder and the head's calls
+    ``layer_norm_rows`` once a forward, with and without a gradient, on the
+    parameters of its ``nn.LayerNorm`` (its names unchanged), and the
+    forward equals the one through the modules bit for bit."""
+    from torch import nn
+
+    _, port = seeded_pair()
+    norms = {id(m.weight): m for m in port.modules() if isinstance(m, nn.LayerNorm)}
+    assert len(norms) == 11
+    assert sum(1 for n, _ in port.named_parameters() if n.endswith("norm.weight")) == 10
+    x = torch.randn(B, T_DATES, 8, 8, BANDS, generator=torch.Generator().manual_seed(1))
+    calls = []
+    original = tsvit_module.layer_norm_rows
+
+    def counted(t, weight, bias, eps):
+        calls.append(id(weight))
+        return original(t, weight, bias, eps)
+
+    monkeypatch.setattr(tsvit_module, "layer_norm_rows", counted)
+    with torch.set_grad_enabled(grad):
+        got = port(x)[InferenceNames.CROP_TYPE]
+    assert sorted(calls) == sorted(norms)
+    monkeypatch.setattr(tsvit_module, "layer_norm_rows",
+                        lambda t, weight, bias, eps: norms[id(weight)](t))
+    with torch.set_grad_enabled(grad):
+        want = port(x)[InferenceNames.CROP_TYPE]
+    torch.testing.assert_close(got, want, rtol=0, atol=0)
+
+
 def test_logits_loss_and_gradients_match_reference():
     """fp32 on both sides; rtol 1e-5 with an absolute floor of 1e-5 of
     the largest entry: the port scales q before its product and runs the

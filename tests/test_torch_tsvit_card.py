@@ -9,8 +9,9 @@ kernels, and its train step over a resident split as a CUDA graph.
 - The TSViT step (published widths, "16-mixed", Adam, masked
   cross-entropy) through ``make_hbm_train_step``: the third call captures
   and every later call replays one graph, 8 temporal launches a step (a
-  forward and a backward a temporal layer); a replay's loss equals an
-  eager step's from the same state and generator within bf16's round-off.
+  forward and a backward a temporal layer) and 19 of each LayerNorm
+  training kernel (its 19 LayerNorms); a replay's loss equals an eager
+  step's from the same state and generator within bf16's round-off.
 
 Needs a CUDA card; skipped without one. No JAX:
 ``python -m pytest --noconftest -p no:cacheprovider
@@ -25,7 +26,7 @@ import torch
 
 from cultionet_tpu_torch.data.device_cache import gather_batch
 from cultionet_tpu_torch.models import TSViT
-from cultionet_tpu_torch.ops import temporal_cuda
+from cultionet_tpu_torch.ops import layer_norm_cuda, temporal_cuda
 from cultionet_tpu_torch.ops.temporal import temporal_attention_reference
 from cultionet_tpu_torch.train import optim as torch_optim
 from cultionet_tpu_torch.train.step import (
@@ -103,11 +104,14 @@ def test_graphed_tsvit_step_replays(card):
     for k, indices in enumerate(rows):
         snap = (copy.deepcopy(state.model.state_dict()),
                 copy.deepcopy(state.optimizer.state_dict()), gen.get_state())
-        replays, launches = profiling.COUNTS["graph_replays"], dict(temporal_cuda.LAUNCHES)
+        replays = profiling.COUNTS["graph_replays"]
+        launches = {**temporal_cuda.LAUNCHES, **layer_norm_cuda.LAUNCHES}
         state, logs = graphed(state, arrays, indices, gen)
         got = float(logs["loss"])
-        moved = {name: temporal_cuda.LAUNCHES[name] - launches[name] for name in launches}
-        assert moved == {"temporal_fwd": 4, "temporal_bwd": 4}, (k, moved)
+        now = {**temporal_cuda.LAUNCHES, **layer_norm_cuda.LAUNCHES}
+        moved = {name: now[name] - launches[name] for name in launches}
+        assert moved == {"temporal_fwd": 4, "temporal_bwd": 4, "layer_norm_rows": 0,
+                         "layer_norm_rows_train": 19, "layer_norm_rows_bwd": 19}, (k, moved)
         # Two eager warm-ups, then the capture (which replays once) and replays.
         assert profiling.COUNTS["graph_replays"] - replays == (k >= 2), k
         weights, opt_state, gen_state = snap
